@@ -1,0 +1,52 @@
+"""Flax variables (as numpy arrays) -> PyTorch state_dicts.
+
+The port's modules take the Flax module names as their attribute names
+(``stage1_block1.conv1``, ``cell``, ``head``), so a variable's path maps to
+its state_dict key directly and only the leaf changes:
+
+* conv ``kernel`` [H, W, I, O] -> ``weight`` [O, I, H, W];
+* ``Dense`` ``kernel`` [in, out] -> ``Linear`` ``weight`` [out, in];
+* BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
+  (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``,
+  plus the ``num_batches_tracked`` counter PyTorch keeps;
+* anything else (the LSTM cell's ``wx``/``wh``/``b``, in [i|f|g|o] order)
+  as it is: the kernel takes the Flax layout.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_RENAME = {"scale": "weight", "mean": "running_mean",
+           "var": "running_var"}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{"params": ..., "batch_stats": ...}`` (nested dicts of numpy
+    arrays; any collection works) to a state_dict for the port's module.
+    Arrays keep their dtype."""
+    out: dict[str, torch.Tensor] = {}
+    for collection in variables.values():
+        for path, arr in _leaves(collection):
+            *module, leaf = path
+            if leaf == "kernel" and arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif leaf == "kernel" and arr.ndim == 2:
+                arr = arr.T
+            name = "weight" if leaf == "kernel" else _RENAME.get(leaf, leaf)
+            out[".".join([*module, name])] = torch.tensor(arr)
+            if leaf == "mean":
+                out[".".join([*module, "num_batches_tracked"])] = \
+                    torch.zeros((), dtype=torch.long)
+    return out

@@ -10,15 +10,23 @@ Phases, one JSON line each; any failure exits non-zero:
 1. card: the card's name and power limit, as nvidia-smi reports them;
 2. build: every kernel under ``k8s_device_plugin_torch/csrc`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes its path gives it, and its time beside the plain version's,
-   a library call's (where one exists) and the card's bound;
-4-6. the main path, with every launch counter set to 0 just before it:
-   ResNet-50 bf16 at ai-benchmark case 1.1 (batch 50 @ 346) natively and
-   as a 4-way share under the cooperative limiter with the duty probe
-   sampling beside it (``bench.measure``), then LSTM case 5.1 inference
-   through the runner; the counters are read just after;
-7. correctness: the models on the card against the same weights on the
-   CPU at small inputs;
+   the shapes its path gives it (and, for the flash absorb, every mask
+   kind on a carried state, an odd T and a head dim of 16), and its time
+   beside the plain version's, a library call's (where one exists) and
+   the card's bound;
+4-8. the main paths, each with every launch counter set to 0 just before
+   it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
+   (batch 50 @ 346) natively and as a 4-way share under the cooperative
+   limiter with the duty probe sampling beside it (``bench.measure``);
+   LSTM case 5.1 inference through the runner; the long-context LM
+   (``LM_CONFIG``, batch 8 x 2048, bf16) through the runner in
+   ``--mode infer`` (attention through the flash absorb) and in
+   ``--mode decode`` (prompt 2048, 32 tokens a call);
+9. the LM's forward and decode step under torch.profiler: device time
+   by kernel and the device's idle share;
+10. correctness: the models on the card against the same weights on the
+   CPU at small inputs, and greedy decoding on the card token for token
+   against its from-scratch recompute;
 then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Needs no network; builds into ``build/kernels`` (git-ignored).
@@ -232,22 +240,167 @@ def phase_lstm_kernel() -> dict:
     return result
 
 
+def _flash_args(batch, tq, tk, heads, dim, dtype, seed, identity):
+    """q, k, v in ``dtype`` on the card, and the identity state or a
+    carried one that is not (m finite, l > 0)."""
+    import numpy as np
+    import torch
+    from k8s_device_plugin_torch.workloads import flash
+    rng = np.random.default_rng(seed)
+
+    def t(shape, lo=None):
+        a = (rng.uniform(lo, 2.0, shape) if lo is not None
+             else rng.standard_normal(shape))
+        return torch.from_numpy(a.astype(np.float32)).to("cuda")
+    q, k, v = (t((batch, n, heads, dim)).to(dtype) for n in (tq, tk, tk))
+    if identity:
+        return (q, k, v, *flash.flash_state(q))
+    return (q, k, v, t((batch, heads, tq)), t((batch, heads, tq), lo=0.5),
+            t((batch, tq, heads, dim)))
+
+
+def _absorb_checked(what, args, kind, tol) -> float:
+    """K3 against its plain version on the same inputs: kind 2 must pass
+    the state through bit for bit; otherwise m, l and o within tol."""
+    import torch
+    from k8s_device_plugin_torch.workloads import flash
+    q, k, v, m, l, o = args
+    got = flash.flash_absorb(q, k, v, kind, m, l, o)
+    if kind == 2:
+        if not all(torch.equal(g, w) for g, w in zip(got, (m, l, o))):
+            raise AssertionError(f"{what}: kind 2 changed the state")
+        return 0.0
+    want = flash._absorb_reference(q, k, v, kind, m, l, o,
+                                   q.shape[-1] ** -0.5)
+    return max(check_close(f"{what} {name}", g, w, tol)
+               for name, g, w in zip("mlo", got, want))
+
+
+def phase_flash_kernel() -> dict:
+    """K3 against its plain version: fp32 at 2 x 128 x 2 heads x 64 on a
+    carried state for each kind (tolerance 1e-5, as
+    tests/test_attention.py), an odd T (24, 100) and D = 16 in both
+    types, and the LM case (batch 8 x 2048, 8 heads of 64, bf16, causal,
+    identity state; tolerance 2e-2, as the bf16 kernels of
+    tests/test_pallas_ops.py) on o, l and the finalized output. Times
+    K3, K3 + finalize, the plain absorb and SDPA on the same q, k, v."""
+    import torch
+    import torch.nn.functional as F
+    from k8s_device_plugin_torch.workloads import flash, run
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    for kind in (0, 1, 2):
+        errs[f"fp32_kind{kind}"] = _absorb_checked(
+            f"flash_absorb fp32 kind {kind}",
+            _flash_args(2, 128, 128, 2, 64, f32, kind, False), kind, 1e-5)
+    for dtype, tol in ((f32, 1e-5), (bf16, 2e-2)):
+        for tq, tk, dim in ((24, 24, 64), (24, 24, 16), (100, 37, 16)):
+            for kind in (0, 1):
+                name = f"{str(dtype)[6:]}_t{tq}x{tk}_d{dim}_kind{kind}"
+                errs[name] = _absorb_checked(
+                    f"flash_absorb {name}",
+                    _flash_args(2, tq, tk, 3, dim, dtype, 7, False), kind,
+                    tol)
+
+    heads, width, _, _ = run.LM_CONFIG
+    batch, _, seq = run.CASES["lm"]
+    dim = width // heads
+    q, k, v, m, l, o = _flash_args(batch, seq, seq, heads, dim, bf16, 11,
+                                   True)
+    got = flash.flash_absorb(q, k, v, 1, m, l, o)
+    want = flash._absorb_reference(q, k, v, 1, m, l, o, dim ** -0.5)
+    err_o = check_close("flash_absorb LM o", got[2], want[2], 2e-2)
+    err_l = check_close("flash_absorb LM l", got[1], want[1], 2e-2)
+    out = flash.flash_finalize(*got, bf16)
+    err = check_close("flash_absorb LM finalized", out,
+                      flash.flash_finalize(*want, bf16), 2e-2)
+    del got, want
+
+    ms, timing = device_ms(lambda: flash.flash_absorb(q, k, v, 1, m, l, o),
+                           20)
+    wall_ms = cuda_ms(lambda: flash.flash_absorb(q, k, v, 1, m, l, o), 20)
+    with_finalize_ms, _ = device_ms(lambda: flash.flash_finalize(
+        *flash.flash_absorb(q, k, v, 1, m, l, o), bf16), 20)
+    plain_ms, _ = device_ms(lambda: flash._absorb_reference(
+        q, k, v, 1, m, l, o, dim ** -0.5), 3)
+    # yardstick only: the finalized causal attention as one PyTorch call
+    # on the same q, k, v in its [B, H, T, D] layout; the port never calls it
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    library_kernels = [k["kernel"] for k in _profile(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        5)["top"]]
+    library_err = max_abs_err(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True).transpose(1, 2), out)
+
+    elem = q.element_size()
+    nbytes = (3 * q.numel() * elem          # q, k, v read once
+              + 2 * 2 * m.numel() * 4       # m, l in and out
+              + 2 * o.numel() * 4)          # o in and out, fp32
+    pairs = seq * (seq + 1) // 2            # causal: row >= col
+    flops = 4 * batch * heads * dim * pairs  # q.k^T and p.v
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    result = {
+        "name": "flash_absorb", "route": "cuda",
+        "source": "k8s_device_plugin_torch/csrc/flash_absorb.cu",
+        "replaces": "k8s_device_plugin_tpu/workloads/flash.py:60",
+        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "timing": timing,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": library_ms,
+    }
+    emit("kernel_flash_absorb", shape=[batch, seq, heads, dim],
+         dtype="bfloat16", kind=1, max_abs_err=err, max_abs_err_o=err_o,
+         max_abs_err_l=err_l, checks=errs, ms=ms, wall_ms=wall_ms,
+         with_finalize_ms=with_finalize_ms, plain_ms=plain_ms,
+         library_ms=library_ms, library_max_abs_err=library_err,
+         library_kernels=library_kernels,
+         bound_ms=result["bound_ms"], bound_by=result["bound_by"],
+         bytes=nbytes, flops=flops, timing=timing)
+    return result
+
+
+def _runner_line(argv) -> dict:
+    """run.main(argv) with its stdout captured; its last JSON line."""
+    from k8s_device_plugin_torch.workloads import run
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run.main(argv)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"runner {argv}: rc={rc} {line}")
+    return line
+
+
 def phase_main_path() -> dict:
-    """ResNet-50 native + 4-way share with the probe, then LSTM case 5.1
-    through the runner; returns each kernel's launches in this run."""
+    """ResNet-50 native + 4-way share with the probe, LSTM case 5.1 and
+    the LM (infer, then decode) through the runner. Every launch counter
+    is set to 0 just before each path and read just after; returns each
+    kernel's launches summed over the paths."""
     from k8s_device_plugin_torch import bench
     from k8s_device_plugin_torch.monitor import dutyprobe
-    from k8s_device_plugin_torch.workloads import pallas_ops, run
+    from k8s_device_plugin_torch.workloads import flash, pallas_ops
 
     counters = {"probe_chain": dutyprobe.probe_chain,
-                "lstm_cell": pallas_ops.lstm_cell}
-    for fn in counters.values():
-        fn.launches = 0
+                "lstm_cell": pallas_ops.lstm_cell,
+                "flash_absorb": flash.flash_absorb}
+    by_path = {}
 
-    args = bench.parse_args([])
+    def counted(path, fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        by_path[path] = {name: c.launches for name, c in counters.items()}
+        return out
+
+    def share():
+        args = bench.parse_args([])
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
+            return bench.measure(args, workdir)
+
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
-        result = bench.measure(args, workdir)
+    result = counted("resnet50_share", share)
     extra = result["extra"]
     emit("resnet50_native", img_per_s=extra["native_img_per_s"],
          best_pass_img_per_s=extra["native_best_pass_img_per_s"],
@@ -272,21 +425,106 @@ def phase_main_path() -> dict:
     if extra["probe"]["availability"] is None:
         raise AssertionError("the duty probe took no sample in the share")
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = run.main(["--model", "lstm"])
-    line = json.loads(out.getvalue().strip().splitlines()[-1])
-    if rc != 0 or not line["items_per_s"] > 0:
-        raise AssertionError(f"lstm runner: rc={rc} {line}")
+    line = counted("lstm_case_5_1",
+                   lambda: _runner_line(["--model", "lstm"]))
+    if not line["items_per_s"] > 0:
+        raise AssertionError(f"lstm runner: {line}")
     emit("lstm_case_5_1", **line)
 
-    launches = {name: fn.launches for name, fn in counters.items()}
-    emit("main_path_launches", **launches)
-    missing = [name for name, n in launches.items() if n <= 0]
+    t0 = time.perf_counter()
+    line = counted("lm_infer", lambda: _runner_line(
+        ["--model", "lm", "--mode", "infer", "--steps", "5"]))
+    if not (line["tokens_per_s"] > 0 and line["sp"] == 1):
+        raise AssertionError(f"lm infer runner: {line}")
+    emit("lm_infer", **line, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    line = counted("lm_decode", lambda: _runner_line(
+        ["--model", "lm", "--mode", "decode", "--steps", "2"]))
+    if not (line["gen_tokens_per_s"] > 0 and line["prefill_s"] > 0):
+        raise AssertionError(f"lm decode runner: {line}")
+    emit("lm_decode", **line, seconds=time.perf_counter() - t0)
+
+    launches = {name: sum(p[name] for p in by_path.values())
+                for name in counters}
+    emit("main_path_launches", **launches, by_path=by_path)
+    # each kernel must have run on the path that carries it
+    own = {"probe_chain": "resnet50_share", "lstm_cell": "lstm_case_5_1",
+           "flash_absorb": "lm_infer"}
+    missing = [name for name, path in own.items()
+               if by_path[path][name] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on their path: "
                              f"{missing}")
     return launches
+
+
+def _profile(fn, iters: int) -> dict:
+    """Where ``fn``'s time goes: wall ms per call (host clock around
+    ``iters`` calls ending in a synchronize, profiler off), device ms per
+    call and the top kernels under torch.profiler (CUPTI), and the
+    device's idle share, 1 - device / wall (one stream: no overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    # one warm-up step first: events at the very start of a profiled
+    # window went missing (3 of a forward's 4 flash launches counted).
+    # The cycle's events are read as it ends, before the profiler clears
+    # them.
+    events = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters),
+                 on_trace_ready=lambda p: events.extend(
+                     e for e in p.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 ) as prof:
+        for _ in range(iters + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
+                       e.count // iters) for e in events),
+                     key=lambda k: -k[1])
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel")
+    device_ms = sum(ms for _, ms, _ in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "kernels_per_call": sum(n for _, _, n in kernels),
+            "top": [{"kernel": name[:150], "ms": ms, "per_call": n,
+                     "share": ms / device_ms} for name, ms, n in kernels[:8]]}
+
+
+def phase_lm_profile() -> None:
+    """The LM's serving paths under the profiler, at the runner's shapes
+    and weights: one forward at batch 8 x 2048 (3 timed), and one decode
+    call of 32 tokens from a 2048-token prefill (2 timed)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import decode, run
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_forward)
+    heads, dim, vocab, layers = run.LM_CONFIG
+    batch, _, seq = run.CASES["lm"]
+    model = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                           heads, layers, dtype=torch.bfloat16)
+    tokens = torch.randint(0, vocab, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to("cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return lm_forward(model, tokens, use_flash=True)
+    emit("lm_infer_profile", **_profile(forward, 3))
+    state = decode.prefill(model, tokens, steps_budget=run.DECODE_LEN)
+    emit("lm_decode_profile", tokens_per_call=run.DECODE_LEN,
+         **_profile(lambda: decode.decode_from(
+             model, *state, steps=run.DECODE_LEN), 2))
 
 
 def phase_correctness() -> None:
@@ -326,7 +564,50 @@ def phase_correctness() -> None:
                               tol)
             report[f"{name}_{str(dtype).split('.')[1]}_rel_err"] = err
         report[f"{name}_max_logit"] = scale
+    report.update(_lm_correctness())
     emit("correctness", **report)
+
+
+def _lm_correctness() -> dict:
+    """The LM at LM_CONFIG's widths and depth on 2 x 64 tokens: on the
+    card with K3 against the same weights on the CPU with the plain
+    absorb, fp32 (TF32 off) to 1e-4 of the largest logit and bf16 to
+    5e-2 (the bf16 bound above); then greedy decoding on the card (fp32,
+    prompt 2 x 16, 8 tokens) token for token against its from-scratch
+    recompute through K3."""
+    import torch
+    from k8s_device_plugin_torch.workloads import decode, run
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_forward)
+    heads, dim, vocab, layers = run.LM_CONFIG
+    ref = init_lm_params(torch.Generator().manual_seed(0), vocab, dim, heads,
+                         layers, device="cpu")
+    tokens = torch.randint(0, vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = lm_forward(ref, tokens, use_flash=True)
+    scale = want.abs().max().item()
+    report = {"lm_max_logit": scale}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        model = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                               heads, layers, dtype=dtype, device="cuda")
+        model.load_state_dict(ref.state_dict())
+        with torch.inference_mode():
+            got = lm_forward(model, tokens.to("cuda"), use_flash=True).cpu()
+        err = check_close(f"lm {dtype}", got.float() / scale, want / scale,
+                          tol)
+        report[f"lm_{str(dtype).split('.')[1]}_rel_err"] = err
+    model = ref.to("cuda")
+    prompt = tokens[:, :16].to("cuda")
+    got = decode.generate(model, prompt, steps=8)
+    want = decode.reference_generate(
+        model, prompt, steps=8,
+        forward=lambda p, t: lm_forward(p, t, use_flash=True))
+    if not torch.equal(got, want):
+        raise AssertionError(f"greedy decode on the card: {got.tolist()} "
+                             f"!= recompute {want.tolist()}")
+    report["lm_greedy_tokens_exact"] = int(got.numel() - prompt.numel())
+    return report
 
 
 def main() -> int:
@@ -353,8 +634,10 @@ def main() -> int:
     phase_card()
     phase_build()
     kernels = {"probe_chain": phase_probe_kernel(),
-               "lstm_cell": phase_lstm_kernel()}
+               "lstm_cell": phase_lstm_kernel(),
+               "flash_absorb": phase_flash_kernel()}
     launches = phase_main_path()
+    phase_lm_profile()
     phase_correctness()
     for name, k in kernels.items():
         k["launches"] = launches[name]

@@ -1,4 +1,5 @@
-"""Flax variables (as numpy arrays) -> PyTorch state_dicts.
+"""Flax variables and JAX parameter pytrees (as numpy arrays) -> PyTorch
+state_dicts.
 
 The port's modules take the Flax module names as their attribute names
 (``stage1_block1.conv1``, ``cell``, ``head``), so a variable's path maps to
@@ -49,4 +50,17 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             if leaf == "mean":
                 out[".".join([*module, "num_batches_tracked"])] = \
                     torch.zeros((), dtype=torch.long)
+    return out
+
+
+def lm_params_to_state_dict(params: Mapping[str, Any]
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX LM pytree (``{"embed": ..., "layers": [{...}, ...]}``, numpy
+    arrays) -> a state_dict for ``attention.LM``: the same names and the
+    same [in, out] layout, so only the paths flatten (``layers.0.qkv``);
+    both the fused MHA and the GQA layout. Arrays keep their dtype."""
+    out = {"embed": torch.tensor(np.asarray(params["embed"]))}
+    for i, lyr in enumerate(params["layers"]):
+        for name, arr in lyr.items():
+            out[f"layers.{i}.{name}"] = torch.tensor(np.asarray(arr))
     return out

@@ -1,0 +1,220 @@
+"""Flash-attention absorb with carried streaming-softmax state: a
+hand-written CUDA kernel and its plain version.
+
+Counterpart of ``k8s_device_plugin_tpu/workloads/flash.py``. The state
+(running max ``m``, normalizer ``l``, accumulator ``o``) is carried in and
+out of every call, so the same kernel serves whole-sequence attention
+(:func:`flash_attention`, state from :func:`flash_state`, one call) and
+callers that absorb K/V block by block (the ``seq_block`` chunking here,
+the ring later). On a CUDA tensor :func:`flash_absorb` launches
+``csrc/flash_absorb.cu`` (see its header for the design and what bounds
+it); on a CPU tensor it runs :func:`_absorb_reference`, the same algebra in
+plain PyTorch.
+
+Layouts follow the JAX package: q [B, Tq, H, D], k/v [B, Tk, H, D];
+m/l [B, H, Tq] fp32; o [B, Tq, H, D] fp32. The mask is a runtime ``kind``:
+0 attends to everything, 1 is causal on call-local row >= col, 2 masks
+everything and passes the state through unchanged.
+
+No gradients yet: on the card the wrapper raises when autograd would need
+one (the training slice brings the ``autograd.Function``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: largest head dim the kernel takes
+MAX_HEAD_DIM = 128
+# dtype, q, k, v, m, l, o, m_out, l_out, o_out, batch, heads, tq, tk, dim,
+# kind, scale, stream
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def absorb_block_reference(q, k, v, allowed, m, l, o, scale: float):
+    """Streaming-softmax absorb of one K/V block in plain PyTorch (the
+    counterpart of ``absorb_block_jnp``). ``allowed``: [Tq, Tk] bool
+    (True = attend). The max-stabilizers are detached, as the JAX mirror
+    stops their gradients."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(allowed[None, None], s, NEG_INF)
+    m_blk = s.amax(dim=-1).detach()                            # [B,H,Tq]
+    p = torch.exp(s - m_blk[..., None])
+    # fully masked rows: m_blk == NEG_INF and p == 1 at every position;
+    # zero them so a masked block adds nothing to l or o
+    p = torch.where((m_blk == NEG_INF)[..., None], 0.0, p)
+    m_c = m.detach()
+    m_new = torch.maximum(m_c, m_blk)
+    corr = torch.exp(m_c - m_new)
+    blk_corr = torch.exp(m_blk - m_new)
+    l_new = l * corr + p.sum(dim=-1) * blk_corr
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o_new = o * corr.transpose(1, 2)[..., None] \
+        + pv * blk_corr.transpose(1, 2)[..., None]
+    return m_new, l_new, o_new
+
+
+def _absorb_reference(q, k, v, kind, m, l, o, scale: float):
+    """The kernel's semantics in plain PyTorch: builds the [Tq, Tk] mask
+    from the runtime ``kind`` as the kernel does (call-local rows and
+    columns) and absorbs with :func:`absorb_block_reference`."""
+    tq, tk = q.shape[1], k.shape[1]
+    rows = torch.arange(tq, device=q.device)[:, None]
+    cols = torch.arange(tk, device=q.device)[None, :]
+    kind = int(kind)
+    allowed = torch.full((tq, tk), kind == 0, device=q.device) \
+        | ((kind == 1) & (rows >= cols))
+    return absorb_block_reference(q, k, v, allowed, m, l, o, scale)
+
+
+def _check(q, k, v, kind, m, l, o) -> int:
+    """Shapes, dtypes and devices common to both versions; returns kind."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_absorb: q and k must be [B, T, H, D], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    batch, tq, heads, dim = q.shape
+    tk = k.shape[1]
+    shapes = {"q": (q, (batch, tq, heads, dim)),
+              "k": (k, (batch, tk, heads, dim)),
+              "v": (v, (batch, tk, heads, dim)),
+              "m": (m, (batch, heads, tq)), "l": (l, (batch, heads, tq)),
+              "o": (o, (batch, tq, heads, dim))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"flash_absorb: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.device != q.device:
+            raise ValueError(f"flash_absorb: {name} is on {t.device}, q on "
+                             f"{q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_absorb: {name} is {t.dtype}, q is "
+                             f"{q.dtype}")
+    for name, t in (("m", m), ("l", l), ("o", o)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"flash_absorb: the state must be float32, "
+                             f"{name} is {t.dtype}")
+    kind = int(kind)
+    if kind not in (0, 1, 2):
+        raise ValueError(f"flash_absorb: kind must be 0, 1 or 2, got {kind}")
+    return kind
+
+
+def flash_absorb(q, k, v, kind, m, l, o):
+    """One streaming-softmax absorption of K/V into (m, l, o); returns the
+    new state in new tensors (the inputs are not written). Finalize with
+    :func:`flash_finalize` once every block has been absorbed."""
+    kind = _check(q, k, v, kind, m, l, o)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return _absorb_reference(q, k, v, kind, m, l, o, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_absorb: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, m, l, o)):
+        raise RuntimeError("flash_absorb: the kernel has no backward yet; "
+                           "run under torch.no_grad() or inference_mode()")
+    batch, tq, heads, dim = q.shape
+    tk = k.shape[1]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_absorb: no kernel for {q.dtype}")
+    if dim > MAX_HEAD_DIM:
+        raise ValueError(f"flash_absorb: head dim {dim} > {MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16 and dim % 8:
+        raise ValueError(f"flash_absorb: bf16 needs a head dim that is a "
+                         f"multiple of 8, got {dim}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("m", m), ("l", l),
+                    ("o", o)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_absorb: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_absorb: {name} is not 16-byte aligned")
+    m_out, l_out, o_out = (torch.empty_like(t) for t in (m, l, o))
+    lib = _build.load("flash_absorb", _ARGTYPES)
+    err = lib.vtpu_flash_absorb(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        m.data_ptr(), l.data_ptr(), o.data_ptr(), m_out.data_ptr(),
+        l_out.data_ptr(), o_out.data_ptr(), batch, heads, tq, tk, dim, kind,
+        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_absorb")
+    flash_absorb.launches += 1
+    return m_out, l_out, o_out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+flash_absorb.launches = 0
+
+
+def _fit_tile(n: int, want: int) -> int:
+    """Largest divisor of ``n`` that is <= ``want``."""
+    t = min(want, n)
+    while n % t:
+        t -= 1
+    return t
+
+
+def _cover_tile(n: int, minimum: int) -> int:
+    """Smallest divisor of ``n`` that is >= ``minimum`` (worst case
+    ``n`` itself)."""
+    t = max(1, min(minimum, n))
+    while n % t:
+        t += 1
+    return t
+
+
+def flash_state(q):
+    """Identity streaming state for a fresh attention computation."""
+    b, tq, h, d = q.shape
+    return (torch.full((b, h, tq), NEG_INF, dtype=torch.float32,
+                       device=q.device),
+            torch.zeros((b, h, tq), dtype=torch.float32, device=q.device),
+            torch.zeros((b, tq, h, d), dtype=torch.float32, device=q.device))
+
+
+def flash_finalize(m, l, o, dtype):
+    l = torch.clamp_min(l, 1e-30)
+    return (o / l.transpose(1, 2)[..., None]).to(dtype)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    seq_block: int | None = None):
+    """Whole-sequence attention through the absorb (single device).
+
+    Without ``seq_block`` it is one whole-sequence absorb. With it, Q and
+    K/V are walked in aligned chunks of ``seq_block`` (grown so there are
+    at most 16): causal skips the pairs above the diagonal, the diagonal
+    pair runs kind 1 and the pairs below it kind 0, all on carried state.
+    """
+    b, t, h, d = q.shape
+    sb = None
+    if seq_block is not None and seq_block < t:
+        sb = _fit_tile(t, seq_block)
+        if t // sb > 16:
+            sb = _cover_tile(t, -(-t // 16))
+    if sb is None or sb >= t:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        m, l, o = flash_state(q)
+        m, l, o = flash_absorb(q, k, v, 1 if causal else 0, m, l, o)
+        return flash_finalize(m, l, o, q.dtype)
+
+    nb = t // sb
+    outs = []
+    for i in range(nb):
+        qi = q[:, i * sb:(i + 1) * sb].contiguous()
+        m, l, o = flash_state(qi)
+        for j in range(i + 1 if causal else nb):
+            kj = k[:, j * sb:(j + 1) * sb].contiguous()
+            vj = v[:, j * sb:(j + 1) * sb].contiguous()
+            kind = 1 if (causal and j == i) else 0
+            m, l, o = flash_absorb(qi, kj, vj, kind, m, l, o)
+        outs.append(flash_finalize(m, l, o, q.dtype))
+    return torch.cat(outs, dim=1)

@@ -4,12 +4,17 @@ Counterpart of ``k8s_device_plugin_tpu/workloads/run.py``: runs one of the
 suite's models, activates the cooperative limiter (so memory and
 duty-cycle caps are honored and usage lands in the shared region for the
 monitor), and prints steady-state throughput as the same JSON fields.
-Ported so far: ``resnet50``, ``resnet152`` and ``lstm`` in ``--mode infer``
-on one device; other models and modes exit with "not yet ported".
+Ported so far, on one device: ``resnet50``, ``resnet152`` and ``lstm`` in
+``--mode infer``, and the long-context ``lm`` in ``--mode infer`` (on the
+card its attention runs through the flash-absorb kernel) and
+``--mode decode`` (KV-cache serving); other models and modes exit with
+"not yet ported".
 
 Usage:
   python3 -m k8s_device_plugin_torch.workloads.run --model lstm \
       [--batch N] [--size S] [--steps K] [--device cuda|cpu]
+  python3 -m k8s_device_plugin_torch.workloads.run --model lm \
+      --mode infer|decode [--batch N] [--size SEQ] [--steps K]
 """
 
 from __future__ import annotations
@@ -32,9 +37,14 @@ CASES = {
     "lm": (8, 4, 2048),
     "moe-lm": (8, 4, 2048),
 }
-PORTED = ("resnet50", "resnet152", "lstm")
+PORTED = {"resnet50": ("infer",), "resnet152": ("infer",),
+          "lstm": ("infer",), "lm": ("infer", "decode")}
 #: time steps of the LSTM case's input sequence (as the JAX runner)
 LSTM_STEPS = 64
+#: one LM shape for every lm mode: heads, dim, vocab, layers
+LM_CONFIG = (8, 512, 8192, 4)
+#: tokens decoded per call in --mode decode; --steps = calls per round
+DECODE_LEN = 32
 
 
 def build_model(name: str, dtype: torch.dtype, size: int):
@@ -78,6 +88,62 @@ def _bench_loop(args, call, device, limiter, batch: int, extra_fn) -> int:
             return 0
 
 
+def _run_lm(args, batch: int, seq: int, device, limiter) -> int:
+    """The long-context causal LM at ``LM_CONFIG`` in bf16, random weights
+    from seed 0, tokens from seed 1. On the card attention runs through
+    the flash absorb (one whole-sequence causal absorb per layer): the
+    dense oracle would hold [B, H, T, T] fp32 scores, 1 GiB a layer at
+    8 x 2048. On the CPU it is the dense oracle, as the JAX runner off
+    the TPU."""
+    from .attention import init_lm_params, lm_forward
+    heads, dim, vocab, layers = LM_CONFIG
+    model = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                           heads, layers, dtype=torch.bfloat16,
+                           device=device)
+    tokens = torch.randint(0, vocab, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(device)
+    if args.mode == "decode":
+        return _run_lm_decode(args, model, tokens, device, limiter)
+    use_flash = device.type == "cuda"
+
+    def call():
+        with torch.inference_mode():
+            return lm_forward(model, tokens, use_flash=use_flash)
+    return _bench_loop(
+        args, call, device, limiter, batch,
+        lambda dt: {"model": args.model, "mode": args.mode, "seq": seq,
+                    "tokens_per_s": round(batch * seq * args.steps / dt, 2),
+                    "sp": 1})
+
+
+def _run_lm_decode(args, model, prompt, device, limiter) -> int:
+    """KV-cache serving: the prompt is prefilled once, cold
+    (``prefill_compile_s``: CUDA context, library handles and kernel
+    builds included, as the JAX runner's first call includes its
+    compile), then once more, timed (``prefill_s``); every timed round
+    decodes ``DECODE_LEN`` tokens per call from that prefilled state."""
+    from . import harness
+    from .decode import decode_from, prefill
+    batch, seq = prompt.shape
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = prefill(model, prompt, steps_budget=DECODE_LEN)
+        harness.synchronize(device)
+        times.append(time.perf_counter() - t0)
+    prefill_compile_s, prefill_s = times
+    return _bench_loop(
+        args, lambda: decode_from(model, *state, steps=DECODE_LEN), device,
+        limiter, batch,
+        lambda dt: {
+            "model": args.model, "mode": "decode", "prompt": seq,
+            "prefill_s": round(prefill_s, 3),
+            "prefill_compile_s": round(prefill_compile_s, 3),
+            "gen_tokens_per_s": round(batch * DECODE_LEN * args.steps / dt,
+                                      2)})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("vtpu-workload-torch")
     p.add_argument("--model", default="resnet50", choices=sorted(CASES))
@@ -94,11 +160,15 @@ def main(argv=None) -> int:
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.model not in PORTED or args.mode != "infer" or args.multichip:
+    if args.mode == "decode" and args.model not in ("lm", "moe-lm"):
+        raise SystemExit("--mode decode supports --model lm / moe-lm only")
+    if args.mode not in PORTED.get(args.model, ()) or args.multichip:
         raise SystemExit(
             f"--model {args.model} --mode {args.mode}"
             f"{' --multichip' if args.multichip else ''} is not yet ported "
-            f"(ported: {', '.join(PORTED)} in --mode infer on one device)")
+            f"(ported, on one device: "
+            + ", ".join(f"{m} in --mode {'/'.join(modes)}"
+                        for m, modes in PORTED.items()) + ")")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -112,6 +182,8 @@ def main(argv=None) -> int:
     infer_b, _, size = CASES[args.model]
     batch = args.batch or infer_b
     size = args.size or size
+    if args.model == "lm":
+        return _run_lm(args, batch, size, device, limiter)
     model = harness.init_model(
         build_model(args.model, torch.bfloat16, size), 0, device)
     if args.model == "lstm":

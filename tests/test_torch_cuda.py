@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from k8s_device_plugin_torch.monitor import dutyprobe
-from k8s_device_plugin_torch.workloads import harness, pallas_ops
+from k8s_device_plugin_torch.workloads import flash, harness, pallas_ops
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +93,113 @@ def test_lstm_classifier_on_the_card_matches_the_cpu(cuda):
     want = harness.make_infer_fn(model)(x)
     got = harness.make_infer_fn(model.to(cuda))(x.to(cuda)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _flash_args(batch, tq, tk, heads, dim, dtype, device, seed=0):
+    """q, k, v in ``dtype`` and a carried state that is not the identity."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, lo=None):
+        a = (rng.uniform(lo, 2.0, shape) if lo is not None
+             else rng.standard_normal(shape))
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+    q, k, v = (t((batch, n, heads, dim)).to(dtype) for n in (tq, tk, tk))
+    return q, k, v, t((batch, heads, tq)), t((batch, heads, tq), lo=0.5), \
+        t((batch, tq, heads, dim))
+
+
+# tq, tk, heads, dim: the LM's head dim, an odd T (24, as
+# tests/test_attention.py), ragged tiles with tq != tk, and D = 16
+@pytest.mark.parametrize("tq,tk,heads,dim", [
+    (128, 128, 2, 64), (24, 24, 2, 64), (100, 37, 3, 16), (37, 100, 1, 64)])
+@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_absorb_kernel_matches_plain(cuda, dtype, tol, kind, tq, tk,
+                                           heads, dim):
+    q, k, v, m, l, o = _flash_args(2, tq, tk, heads, dim, dtype, cuda)
+    before = flash.flash_absorb.launches
+    got = flash.flash_absorb(q, k, v, kind, m, l, o)
+    torch.cuda.synchronize()
+    assert flash.flash_absorb.launches == before + 1
+    if kind == 2:  # the state passes through bit for bit
+        for g, w in zip(got, (m, l, o)):
+            assert torch.equal(g, w)
+        return
+    want = flash.absorb_block_reference(
+        q, k, v, _allowed(kind, tq, tk, cuda), m, l, o, dim ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+def _allowed(kind, tq, tk, device):
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    return (rows >= cols) if kind == 1 else torch.ones(
+        tq, tk, dtype=torch.bool, device=device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("seq_block", [None, 32])
+def test_flash_attention_kernel_matches_dense(cuda, dtype, tol, seq_block):
+    from k8s_device_plugin_torch.workloads.attention import \
+        reference_attention
+    q, k, v, *_ = _flash_args(2, 96, 96, 4, 64, dtype, cuda, seed=3)
+    for causal in (True, False):
+        got = flash.flash_attention(q, k, v, causal=causal,
+                                    seq_block=seq_block)
+        want = reference_attention(q, k, v, causal=causal)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_absorb_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, m, l, o = _flash_args(1, 8, 8, 1, 12, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash.flash_absorb(q, k, v, 0, m, l, o)
+    q, k, v, m, l, o = _flash_args(1, 8, 8, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_absorb(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, 0, m, l, o)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash.flash_absorb(q.requires_grad_(), k, v, 0, m, l, o)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_lm_with_the_kernel_matches_dense_attention(cuda, dtype, tol,
+                                                    kv_heads):
+    """The LM at LM_CONFIG's widths (8 heads of 64, vocab 8192), 2 layers,
+    with K3 against the same LM with dense attention on the card; tol is
+    relative to the largest logit."""
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_forward)
+    model = init_lm_params(torch.Generator().manual_seed(0), 8192, 512, 8, 2,
+                           dtype=dtype, kv_heads=kv_heads, device=cuda)
+    tokens = torch.randint(0, 8192, (2, 200),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = flash.flash_absorb.launches
+    with torch.inference_mode():
+        got = lm_forward(model, tokens, use_flash=True).float()
+        want = lm_forward(model, tokens).float()
+    assert flash.flash_absorb.launches == before + 2  # one per layer
+    scale = want.abs().max()
+    torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=tol)
+
+
+def test_greedy_generate_on_the_card_is_token_exact(cuda):
+    from k8s_device_plugin_torch.workloads import decode
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_forward)
+    model = init_lm_params(torch.Generator().manual_seed(0), 8192, 512, 8, 2,
+                           device=cuda)
+    prompt = torch.randint(0, 8192, (2, 16),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    got = decode.generate(model, prompt, steps=8)
+    want = decode.reference_generate(
+        model, prompt, steps=8,
+        forward=lambda p, t: lm_forward(p, t, use_flash=True))
+    assert torch.equal(got, want)

@@ -1,0 +1,139 @@
+"""Flash absorb and flash attention: the PyTorch port against the JAX package.
+
+On the CPU the port's ``flash_absorb`` runs its plain version (the CUDA
+kernel is held against that plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``). Here the same seeded
+numpy inputs go through the Pallas kernel in interpret mode, the JAX dense
+oracle and the port, at the shapes and tolerances of
+``tests/test_attention.py``: 1e-5 in fp32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_device_plugin_torch.workloads import flash as tflash
+from k8s_device_plugin_tpu.workloads import flash as jflash
+from k8s_device_plugin_tpu.workloads.attention import reference_attention
+
+TOL = 1e-5  # tests/test_attention.py's flash tolerance
+
+
+def _qkv(b=2, t=16, h=4, d=8, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, t, h, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _state(b, t, h, d, seed=1):
+    """A carried state that is not the identity (m finite, l > 0)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, t)).astype(np.float32),
+            rng.uniform(0.5, 2.0, (b, h, t)).astype(np.float32),
+            rng.standard_normal((b, t, h, d)).astype(np.float32))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def _j(*arrays):
+    return tuple(jnp.asarray(a) for a in arrays)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_and_dense(causal):
+    q, k, v = _qkv(b=2, t=32, h=4, d=16)
+    got = tflash.flash_attention(*_t(q, k, v), causal=causal).numpy()
+    _close(got, jflash.flash_attention(*_j(q, k, v), causal=causal,
+                                       q_tile=8, kv_tile=16, interpret=True))
+    _close(got, reference_attention(*_j(q, k, v), causal=causal))
+
+
+def test_flash_masked_block_is_noop():
+    """kind 2 passes the streaming state through untouched, bit for bit."""
+    q, k, v = _t(*_qkv(b=1, t=8, h=2, d=4))
+    m1, l1, o1 = tflash.flash_absorb(q, k, v, 1, *tflash.flash_state(q))
+    m2, l2, o2 = tflash.flash_absorb(q, k, v, 2, m1, l1, o1)
+    for a, b in ((m1, m2), (l1, l2), (o1, o2)):
+        assert torch.equal(a, b)
+
+
+def test_flash_fits_odd_block_lengths():
+    q, k, v = _qkv(b=1, t=24, h=2, d=8, seed=3)
+    got = tflash.flash_attention(*_t(q, k, v), causal=True).numpy()
+    _close(got, jflash.flash_attention(*_j(q, k, v), causal=True,
+                                       interpret=True))
+    _close(got, reference_attention(*_j(q, k, v), causal=True))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_seq_block_matches_pallas_and_dense(causal):
+    """The chunked Q x KV walk: kind 0 and kind 1 absorbs on carried
+    state, causal pairs above the diagonal skipped."""
+    q, k, v = _qkv(b=1, t=32, h=2, d=8, seed=7)
+    got = tflash.flash_attention(*_t(q, k, v), causal=causal,
+                                 seq_block=8).numpy()
+    _close(got, jflash.flash_attention(*_j(q, k, v), causal=causal,
+                                       q_tile=8, kv_tile=8, interpret=True,
+                                       seq_block=8))
+    _close(got, reference_attention(*_j(q, k, v), causal=causal))
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("tq,tk", [(16, 16), (8, 24)])
+def test_flash_absorb_on_carried_state_matches_pallas(kind, tq, tk):
+    q, _, _ = _qkv(b=2, t=tq, h=2, d=8, seed=4)
+    _, k, v = _qkv(b=2, t=tk, h=2, d=8, seed=5)
+    m, l, o = _state(2, tq, 2, 8)
+    got = tflash.flash_absorb(*_t(q, k, v), kind, *_t(m, l, o))
+    want = jflash.flash_absorb(*_j(q, k, v), kind, *_j(m, l, o), q_tile=8,
+                               kv_tile=8, interpret=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g.numpy(), w)
+    # and the plain absorb against the JAX mirror of the kernel
+    ref = jflash._absorb_reference(*_j(q, k, v), kind, *_j(m, l, o),
+                                   scale=8 ** -0.5)
+    for g, w in zip(got, ref):
+        _close(g.numpy(), w)
+
+
+def test_state_finalize_and_tiles_match_jax():
+    q, _, _ = _qkv(b=2, t=5, h=3, d=4)
+    for g, w in zip(tflash.flash_state(torch.from_numpy(q)),
+                    jflash.flash_state(jnp.asarray(q))):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    m, l, o = _state(2, 5, 3, 4)
+    l[0, 0, 0] = 0.0  # a row that saw nothing: l clamps at 1e-30, no NaN
+    o[0, 0, 0] = 0.0
+    got = tflash.flash_finalize(*_t(m, l, o), torch.float32).numpy()
+    _close(got, jflash.flash_finalize(*_j(m, l, o), jnp.float32))
+    assert np.isfinite(got).all()
+    for n in (1, 7, 24, 96, 128, 192, 2048):
+        for want in (1, 8, 16, 100, 128, 1024):
+            assert tflash._fit_tile(n, want) == jflash._fit_tile(n, want)
+            assert tflash._cover_tile(n, want) == jflash._cover_tile(n, want)
+
+
+def test_flash_absorb_on_cpu_counts_no_launch_and_checks_shapes():
+    q, k, v = _t(*_qkv(b=1, t=8, h=2, d=4))
+    m, l, o = tflash.flash_state(q)
+    before = tflash.flash_absorb.launches
+    tflash.flash_absorb(q, k, v, 1, m, l, o)
+    assert tflash.flash_absorb.launches == before
+    with pytest.raises(ValueError, match="kind"):
+        tflash.flash_absorb(q, k, v, 3, m, l, o)
+    with pytest.raises(ValueError, match="expected"):
+        tflash.flash_absorb(q, k[:, :, :1], v, 0, m, l, o)
+    with pytest.raises(ValueError, match="float32"):
+        tflash.flash_absorb(q, k, v, 0, m, l, o.double())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tflash.flash_absorb(*(t.to("meta") for t in (q, k, v)), 0,
+                            *(t.to("meta") for t in (m, l, o)))

@@ -58,9 +58,35 @@ def test_runner_runs_the_resnets(model, monkeypatch, capsys, tmp_path):
     assert out["model"] == model and out["items_per_s"] > 0
 
 
+@pytest.mark.parametrize("mode", ["infer", "decode"])
+def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
+                                                      capsys):
+    monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
+    monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
+    tiny = ["--model", "lm", "--mode", mode, "--batch", "2", "--size", "16",
+            "--steps", "1"]
+    assert jrun.main(tiny) == 0
+    want = _last_json(capsys)
+    from k8s_device_plugin_torch.workloads.flash import flash_absorb
+    before = flash_absorb.launches
+    assert trun.main(tiny + ["--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert sorted(got) == sorted(want)
+    assert (got["model"], got["mode"], got["batch"]) == ("lm", mode, 2)
+    if mode == "infer":
+        assert (got["seq"], got["sp"]) == (16, 1) and got["tokens_per_s"] > 0
+    else:
+        assert got["prompt"] == 16 and got["gen_tokens_per_s"] > 0
+        assert got["prefill_s"] >= 0 and got["prefill_compile_s"] >= 0
+    assert flash_absorb.launches == before  # the CPU ran no kernel
+    assert trun.LM_CONFIG == jrun.LM_CONFIG
+    assert trun.CASES["lm"] == jrun.CASES["lm"]
+
+
 @pytest.mark.parametrize("argv", [
     ["--model", "vgg16"],
-    ["--model", "lm"],
+    ["--model", "moe-lm"],
+    ["--model", "lm", "--mode", "train"],
     ["--model", "resnet50", "--mode", "train"],
     ["--model", "lstm", "--multichip"],
 ])
@@ -69,9 +95,18 @@ def test_runner_refuses_what_is_not_ported(argv):
         trun.main(argv + ["--device", "cpu"])
 
 
+def test_runner_refuses_decode_for_a_model_without_a_cache():
+    with pytest.raises(SystemExit, match="decode supports"):
+        trun.main(["--model", "resnet50", "--mode", "decode", "--device",
+                   "cpu"])
+
+
 def test_entry_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     import inspect
+    from k8s_device_plugin_torch.workloads.attention import init_lm_params
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+    assert inspect.signature(init_lm_params).parameters[
+        "device"].default == "cuda"
     assert tbench.parse_args([]).device == "cuda"
     fn, args = entry("cpu")
     out = fn(*args)
@@ -97,3 +132,9 @@ def test_bench_assembles_the_share_result(tmp_path):
     assert extra["platform"] == "cpu" and extra["mfu"] == 0.0
     assert 0.0 < extra["probe"]["availability"] <= 1.0
     assert extra["probe"]["samples"] >= 1
+
+
+def test_runner_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        trun.main(["--model", "lm"])

@@ -11,9 +11,10 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build: every kernel under ``k8s_device_plugin_torch/csrc`` with nvcc;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (and, for the flash absorb, every mask
-   kind on a carried state, an odd T and a head dim of 16), and its time
-   beside the plain version's, a library call's (where one exists) and
-   the card's bound;
+   kind on a carried state, an odd T and a head dim of 16, each check
+   naming the route that ran), and its time beside the plain version's,
+   a library call's (where one exists) and the card's bound; for the
+   flash absorb also its mma.sync route and its rounded-P variant;
 4-8. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
    (batch 50 @ 346) natively and as a 4-way share under the cooperative
@@ -133,7 +134,8 @@ def phase_build() -> None:
         for name, log in reports.items():
             f.write(f"== {name}\n{log}\n")
     usage = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "warning" in ln.lower()]
              for name, log in reports.items()}
     emit("build", seconds=seconds, kernels=sorted(reports), ptxas=usage)
 
@@ -193,7 +195,9 @@ def _lstm_args(batch, features, hidden, dtype, seed=0):
 
 def phase_lstm_kernel() -> dict:
     """K2 against its plain version: case 5.1 in bf16 (tolerance 2e-2, as
-    tests/test_pallas_ops.py) and a small fp32 shape (1e-5)."""
+    tests/test_pallas_ops.py; the ring route: cp.async ring, wgmma, block
+    pairs splitting K) and a small fp32 shape (1e-5); its time beside
+    torch.lstm_cell's and the bound."""
     import torch
     from k8s_device_plugin_torch.workloads import pallas_ops
     small = _lstm_args(8, 128, 128, torch.float32, seed=1)
@@ -224,6 +228,7 @@ def phase_lstm_kernel() -> dict:
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
     result = {
         "name": "lstm_cell", "route": "cuda",
+        "kernel_route": pallas_ops.cell_route(x, h, wx, wh),
         "source": "k8s_device_plugin_torch/csrc/lstm_cell.cu",
         "replaces": "k8s_device_plugin_tpu/workloads/pallas_ops.py:25",
         "max_abs_err": err, "ms": ms, "kernel_ms": ms, "timing": timing,
@@ -234,8 +239,10 @@ def phase_lstm_kernel() -> dict:
         "library_ms": library_ms,
     }
     emit("kernel_lstm_cell", shape=LSTM_CASE, dtype="bfloat16",
-         max_abs_err=err, max_abs_err_fp32_small=err32, ms=ms,
-         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_s * 1e3,
+         route=result["kernel_route"], max_abs_err=err,
+         max_abs_err_fp32_small=err32, ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, ms_over_library=ms / library_ms,
+         share_of_bound=bound_s * 1e3 / ms, bound_ms=bound_s * 1e3,
          bytes=nbytes, flops=flops, timing=timing, wall_ms=wall_ms)
     return result
 
@@ -259,45 +266,55 @@ def _flash_args(batch, tq, tk, heads, dim, dtype, seed, identity):
             t((batch, tq, heads, dim)))
 
 
-def _absorb_checked(what, args, kind, tol) -> float:
+def _absorb_checked(what, args, kind, tol) -> dict:
     """K3 against its plain version on the same inputs: kind 2 must pass
-    the state through bit for bit; otherwise m, l and o within tol."""
+    the state through bit for bit; otherwise m, l and o within tol.
+    Returns the route that ran and the max abs error."""
     import torch
     from k8s_device_plugin_torch.workloads import flash
     q, k, v, m, l, o = args
+    route = flash.absorb_route(q.dtype, q.shape[-1], k.shape[1])
     got = flash.flash_absorb(q, k, v, kind, m, l, o)
     if kind == 2:
         if not all(torch.equal(g, w) for g, w in zip(got, (m, l, o))):
             raise AssertionError(f"{what}: kind 2 changed the state")
-        return 0.0
+        return {"route": route, "max_abs_err": 0.0}
     want = flash._absorb_reference(q, k, v, kind, m, l, o,
                                    q.shape[-1] ** -0.5)
-    return max(check_close(f"{what} {name}", g, w, tol)
-               for name, g, w in zip("mlo", got, want))
+    return {"route": route,
+            "max_abs_err": max(check_close(f"{what} {name}", g, w, tol)
+                               for name, g, w in zip("mlo", got, want))}
 
 
 def phase_flash_kernel() -> dict:
     """K3 against its plain version: fp32 at 2 x 128 x 2 heads x 64 on a
     carried state for each kind (tolerance 1e-5, as
     tests/test_attention.py), an odd T (24, 100) and D = 16 in both
-    types, and the LM case (batch 8 x 2048, 8 heads of 64, bf16, causal,
-    identity state; tolerance 2e-2, as the bf16 kernels of
-    tests/test_pallas_ops.py) on o, l and the finalized output. Times
-    K3, K3 + finalize, the plain absorb and SDPA on the same q, k, v."""
+    types, T = 1000 in bf16, and the LM case (batch 8 x 2048,
+    8 heads of 64, bf16, causal, identity state; tolerance 2e-2, as the
+    bf16 kernels of tests/test_pallas_ops.py) on m, o, l and the finalized
+    output, on the wgmma route and on the mma.sync one. Every check names
+    the route that ran. Times the wgmma route, its variant with P rounded
+    to bf16 (measured, and its error reported, never used), the mma.sync
+    route, K3 + finalize, the plain absorb and SDPA on the same q, k, v."""
     import torch
     import torch.nn.functional as F
     from k8s_device_plugin_torch.workloads import flash, run
     f32, bf16 = torch.float32, torch.bfloat16
-    errs = {}
+    checks = {}
     for kind in (0, 1, 2):
-        errs[f"fp32_kind{kind}"] = _absorb_checked(
+        checks[f"fp32_kind{kind}"] = _absorb_checked(
             f"flash_absorb fp32 kind {kind}",
             _flash_args(2, 128, 128, 2, 64, f32, kind, False), kind, 1e-5)
-    for dtype, tol in ((f32, 1e-5), (bf16, 2e-2)):
-        for tq, tk, dim in ((24, 24, 64), (24, 24, 16), (100, 37, 16)):
+    for dtype, tol, shapes in (
+            (f32, 1e-5, ((24, 24, 64), (24, 24, 16), (100, 37, 16))),
+            # T = 1000 wraps the wgmma route's K/V ring many times
+            (bf16, 2e-2, ((24, 24, 64), (24, 24, 16), (100, 37, 16),
+                          (1000, 1000, 64)))):
+        for tq, tk, dim in shapes:
             for kind in (0, 1):
                 name = f"{str(dtype)[6:]}_t{tq}x{tk}_d{dim}_kind{kind}"
-                errs[name] = _absorb_checked(
+                checks[name] = _absorb_checked(
                     f"flash_absorb {name}",
                     _flash_args(2, tq, tk, 3, dim, dtype, 7, False), kind,
                     tol)
@@ -307,17 +324,32 @@ def phase_flash_kernel() -> dict:
     dim = width // heads
     q, k, v, m, l, o = _flash_args(batch, seq, seq, heads, dim, bf16, 11,
                                    True)
-    got = flash.flash_absorb(q, k, v, 1, m, l, o)
     want = flash._absorb_reference(q, k, v, 1, m, l, o, dim ** -0.5)
-    err_o = check_close("flash_absorb LM o", got[2], want[2], 2e-2)
-    err_l = check_close("flash_absorb LM l", got[1], want[1], 2e-2)
-    out = flash.flash_finalize(*got, bf16)
-    err = check_close("flash_absorb LM finalized", out,
-                      flash.flash_finalize(*want, bf16), 2e-2)
-    del got, want
+    want_out = flash.flash_finalize(*want, bf16)
+    route = flash.absorb_route(q.dtype, dim, seq)
+
+    def lm_errors(got, strict):
+        def err(what, g, w):
+            return (check_close(f"flash_absorb LM {what}", g, w, 2e-2)
+                    if strict else max_abs_err(g, w))
+        return {"m": err("m", got[0], want[0]), "l": err("l", got[1], want[1]),
+                "o": err("o", got[2], want[2]),
+                "finalized": err("finalized", flash.flash_finalize(*got, bf16),
+                                 want_out)}
+    lm = {route: lm_errors(flash.flash_absorb(q, k, v, 1, m, l, o), True),
+          "mma_sync": lm_errors(flash._absorb_kernel(
+              "mma_sync", q, k, v, 1, m, l, o), True),
+          # the variant that rounds P to bf16: measured, never used
+          "wgmma_round_p": lm_errors(flash._absorb_kernel(
+              "wgmma_round_p", q, k, v, 1, m, l, o), False)}
+    err = lm[route]["finalized"]
+    del want
 
     ms, timing = device_ms(lambda: flash.flash_absorb(q, k, v, 1, m, l, o),
                            20)
+    route_ms = {r: device_ms(lambda r=r: flash._absorb_kernel(
+        r, q, k, v, 1, m, l, o), 20)[0]
+        for r in ("mma_sync", "wgmma_round_p")}
     wall_ms = cuda_ms(lambda: flash.flash_absorb(q, k, v, 1, m, l, o), 20)
     with_finalize_ms, _ = device_ms(lambda: flash.flash_finalize(
         *flash.flash_absorb(q, k, v, 1, m, l, o), bf16), 20)
@@ -332,7 +364,7 @@ def phase_flash_kernel() -> dict:
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
         5)["top"]]
     library_err = max_abs_err(F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True).transpose(1, 2), out)
+        qt, kt, vt, is_causal=True).transpose(1, 2), want_out)
 
     elem = q.element_size()
     nbytes = (3 * q.numel() * elem          # q, k, v read once
@@ -341,22 +373,25 @@ def phase_flash_kernel() -> dict:
     pairs = seq * (seq + 1) // 2            # causal: row >= col
     flops = 4 * batch * heads * dim * pairs  # q.k^T and p.v
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    bound_ms = max(bytes_s, ops_s) * 1e3
     result = {
         "name": "flash_absorb", "route": "cuda",
         "source": "k8s_device_plugin_torch/csrc/flash_absorb.cu",
         "replaces": "k8s_device_plugin_tpu/workloads/flash.py:60",
         "max_abs_err": err, "ms": ms, "kernel_ms": ms, "timing": timing,
-        "plain_ms": plain_ms, "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "kernel_route": route, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": library_ms,
     }
     emit("kernel_flash_absorb", shape=[batch, seq, heads, dim],
-         dtype="bfloat16", kind=1, max_abs_err=err, max_abs_err_o=err_o,
-         max_abs_err_l=err_l, checks=errs, ms=ms, wall_ms=wall_ms,
+         dtype="bfloat16", kind=1, route=route, max_abs_err=err,
+         lm_case_errors=lm, checks=checks, ms=ms, route_ms=route_ms,
+         p_split_cost_ms=ms - route_ms["wgmma_round_p"],
+         share_of_bound=bound_ms / ms, wall_ms=wall_ms,
          with_finalize_ms=with_finalize_ms, plain_ms=plain_ms,
          library_ms=library_ms, library_max_abs_err=library_err,
          library_kernels=library_kernels,
-         bound_ms=result["bound_ms"], bound_by=result["bound_by"],
+         bound_ms=bound_ms, bound_by=result["bound_by"],
          bytes=nbytes, flops=flops, timing=timing)
     return result
 
@@ -476,18 +511,22 @@ def _profile(fn, iters: int) -> dict:
     # one warm-up step first: events at the very start of a profiled
     # window went missing (3 of a forward's 4 flash launches counted).
     # The cycle's events are read as it ends, before the profiler clears
-    # them.
+    # them. A cycle that came back empty (seen once, after many profiled
+    # windows in one process) is profiled again, up to 3 times.
     events = []
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=iters),
-                 on_trace_ready=lambda p: events.extend(
-                     e for e in p.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-                 ) as prof:
-        for _ in range(iters + 1):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=iters),
+                     on_trace_ready=lambda p: events.extend(
+                         e for e in p.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+                     ) as prof:
+            for _ in range(iters + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if events:
+            break
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
                        e.count // iters) for e in events),
                      key=lambda k: -k[1])
@@ -496,9 +535,13 @@ def _profile(fn, iters: int) -> dict:
     device_ms = sum(ms for _, ms, _ in kernels)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "profile_attempts": attempt,
             "kernels_per_call": sum(n for _, _, n in kernels),
             "top": [{"kernel": name[:150], "ms": ms, "per_call": n,
-                     "share": ms / device_ms} for name, ms, n in kernels[:8]]}
+                     "share": ms / device_ms} for name, ms, n in kernels[:8]],
+            # copies (layout changes and casts) by kernel, all of them
+            "copies": [{"kernel": name[:150], "ms": ms, "per_call": n}
+                       for name, ms, n in kernels if "copy" in name.lower()]}
 
 
 def phase_lm_profile() -> None:

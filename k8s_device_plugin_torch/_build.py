@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` for ``sm_90a``; the hash
-covers the source and the flags, so an edited source builds anew and an
-unchanged one is reused. Sources build in parallel, one ``nvcc`` each.
+covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header builds anew and an unchanged one is reused. Sources build in parallel, one ``nvcc`` each.
 Nothing is built when this module is imported: the first launch of a
 kernel (or an explicit :func:`build_all`) builds it.
 """
@@ -43,8 +43,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``name``: its hash covers ``<name>.cu``, every
+    ``*.cuh`` beside it (any source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -11,30 +11,49 @@
 // 100 FLOP per byte, below the H100's ~295 FLOP/byte ridge: it is bound
 // by device-memory bytes, and the weights are almost all of them.
 //
-// Design, both paths: one block owns a tile of rows by hidden columns j of
-// ALL FOUR gate slabs (columns j, H+j, 2H+j, 3H+j), so each thread ends
-// the K loop holding i, f, g and o for its (row, j) pairs and finishes
-// h'/c' in registers. x.Wx and h.Wh run as two K phases into one fp32
-// accumulator. Ragged B, F and H are masked: loads outside the arrays
-// read 0, stores outside are skipped, so no shape needs padding (the TPU
-// kernel needed H, F % 128 == 0 and B % 8 == 0).
+// Design, every path: one block owns a tile of rows by hidden columns j of
+// ALL FOUR gate slabs (columns j, H+j, 2H+j, 3H+j), so the block ends the
+// K loop holding i, f, g and o for its (row, j) pairs and finishes h'/c'
+// on chip. x.Wx and h.Wh run as one K loop over [x | h] into one fp32
+// accumulator. Ragged B, F and H are masked: loads outside the arrays read
+// 0, stores outside are skipped, so no shape needs padding (the TPU kernel
+// needed H, F % 128 == 0 and B % 8 == 0). Three routes, chosen by the
+// wrapper from dtype, shape and alignment (never after a failure):
 //
-// bf16 (the case-5 path): tensor cores, mma.sync m16n8k16 with fp32
-// accumulation. A block is 64 rows x 8 hidden columns, so its n8 tiles
-// are exactly the four gates; each of 4 warps owns one m16 tile. With
-// 128 column blocks at H = 1024 every SM streams its own slice of the
-// weights. Tiles are staged through shared memory (padded so fragment
-// loads hit 32 distinct banks), and the next tile's loads are in flight
-// in registers while the current one multiplies.
+// bf16 ring (case 5.1's): a block holds up to 128 rows (two m64 slabs:
+// all of case 5.1's 100), so each weight byte is fetched once. A cluster
+// of two blocks owns 16 hidden columns of each gate slab (128 blocks at
+// H = 1024) and splits the K loop over [x | h] in halves, so each x/h
+// byte is read from L2 by 64 block pairs' one half instead of by all 128
+// blocks (17 MB instead of 34 at case 5.1), and each weight row piece is
+// a whole 32-byte sector. Tiles of 64 K values (x/h rows of 128 x 64 and
+// the 64 x 64 weight columns, 24 KB) stream through a STAGES-deep
+// cp.async ring (72 KB in flight per SM), zero-filled past B, F, H by the
+// copy itself and written in the 128-byte swizzle that wgmma's
+// descriptors read: each warpgroup runs wgmma m64n64k16 on its 64 rows
+// with A (x/h) K-major and the weights MN-major straight from their [k][n]
+// layout (no transposing stores), fp32 accumulation. Rank 1 of the pair
+// hands its partial sums to rank 0 through distributed shared memory;
+// rank 0 adds them and, since every thread holds all four gates of its
+// (row, column)s, runs the gate math in registers. Needs F % 4 == 0,
+// H % 16 == 0, x 8-byte and h and the weights 16-byte aligned.
+// bf16 otherwise: 64 rows x 8 hidden columns per block, element-wise
+// loads staged through shared memory, mma.sync.
 // fp32: plain FMA on the CUDA cores (tensor cores would round to TF32),
 // 64 rows x 16 columns per block, each thread 8 rows of one column.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
+
+using sm90::bits;
 
 constexpr int BM = 64;   // rows of the batch per block
 constexpr int BJ = 16;   // hidden columns per block, in each of 4 slabs
@@ -45,6 +64,17 @@ constexpr int AS = BM + 4;  // padded row of the transposed A tile
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
+}
+
+__device__ __forceinline__ float bf(bits v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+
+// the gate math for one (row, j): gates i, f, g, o with their biases added
+__device__ __forceinline__ void finish(float i, float f, float g, float o,
+                                       float c, float& h_new, float& c_new) {
+  c_new = sigmoid(f) * c + sigmoid(i) * tanhf(g);
+  h_new = sigmoid(o) * tanhf(c_new);
 }
 
 // ---------------------------------------------------------------- fp32, FMA
@@ -112,58 +142,42 @@ lstm_cell_fp32_kernel(const float* __restrict__ x, const float* __restrict__ h,
   const int tj = threadIdx.x % BJ, tr = threadIdx.x / BJ;
   const int j = j0 + tj;
   if (j >= hidden) return;
-  const float bi = b[j], bf = b[hidden + j];
+  const float bi = b[j], bf_ = b[hidden + j];
   const float bg = b[2 * hidden + j], bo = b[3 * hidden + j];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int m = m0 + tr * RT + r;
     if (m >= rows) break;
     const size_t idx = static_cast<size_t>(m) * hidden + j;
-    const float c_new = sigmoid(acc[r][1] + bf) * c[idx]
-                      + sigmoid(acc[r][0] + bi) * tanhf(acc[r][2] + bg);
-    h_out[idx] = sigmoid(acc[r][3] + bo) * tanhf(c_new);
+    float h_new, c_new;
+    finish(acc[r][0] + bi, acc[r][1] + bf_, acc[r][2] + bg, acc[r][3] + bo,
+           c[idx], h_new, c_new);
+    h_out[idx] = h_new;
     c_out[idx] = c_new;
   }
 }
 
-// ------------------------------------------------------- bf16, tensor cores
+// -------------------------------------------- bf16, element-wise fallback
 
 namespace tc {
 
 constexpr int BM = 64;      // rows per block: one m16 tile per warp
 constexpr int BJ = 8;       // hidden columns per block: one n8 tile per gate
+constexpr int BK = 64;      // depth of one tile
 constexpr int NT = 128;     // 4 warps
+constexpr int CA = BK / 4;  // A chunks of 4 per tile row
 // A tile of depth BK = 64 is stored in rows of BK + 8 bf16, 36 words: 4
 // times an odd number, so the 8 rows x 4 words of a warp's fragment load
 // hit 32 distinct banks.
-using bits = unsigned short;  // one bf16, moved as raw bits
+using sm90::mma;
 
 __device__ __forceinline__ uint32_t ld32(const bits* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ float bf(bits v) {
-  return __bfloat162float(__ushort_as_bfloat16(v));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Up to 4 (8) bf16 from p, n of them inside the array, 0 for the rest.
-// kVector: the launch guarantees every chunk is whole (n >= 4, resp. 8)
-// or wholly outside (n <= 0) and aligned, so one 8- (16-) byte load or
-// none; else one bf16 at a time. Element e lands in bits 16*(e%2) of
-// word e/2 either way.
-template <bool kVector>
+// up to 4 (8) bf16 from p, n of them inside the array, 0 for the rest;
+// element e lands in bits 16*(e%2) of word e/2
 __device__ __forceinline__ uint2 load4(const bits* p, int n) {
-  if (kVector) return n > 0 ? *reinterpret_cast<const uint2*>(p)
-                            : make_uint2(0, 0);
   uint32_t v[2] = {0, 0};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
@@ -171,10 +185,7 @@ __device__ __forceinline__ uint2 load4(const bits* p, int n) {
   return make_uint2(v[0], v[1]);
 }
 
-template <bool kVector>
 __device__ __forceinline__ uint4 load8(const bits* p, int n) {
-  if (kVector) return n > 0 ? *reinterpret_cast<const uint4*>(p)
-                            : make_uint4(0, 0, 0, 0);
   uint32_t v[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int e = 0; e < 8; ++e)
@@ -183,19 +194,10 @@ __device__ __forceinline__ uint4 load8(const bits* p, int n) {
 }
 
 // A K tile, BK deep, is staged global -> registers -> shared memory, and
-// the next tile's loads start before the current tile's MMAs, so they are
-// in flight while the tensor cores work. Thread t always loads A's 4-wide
-// chunk t % (BK/4) of rows t / (BK/4) + i * NT/(BK/4), and W's gate
-// q = t % 4 (columns j0..j0+7) at depths t / 4 + i * NT/4. With
-// depth % 4 == 0, hidden % 8 == 0 and aligned inputs (case 5.1) each chunk
-// is one vector load (kVector): scalar 16-bit loads were five times the
-// load instructions and bounded the kernel. Other shapes load element by
-// element. A branch per chunk between the two, instead of one per launch,
-// cost 16% at case 5.1 (0.0267 -> 0.0312 ms on the H100).
-template <bool kVector>
+// the next tile's loads start before the current tile's MMAs. Thread t
+// always loads A's 4-wide chunk t % CA of rows t / CA + i * NT/CA, and W's
+// gate q = t % 4 (columns j0..j0+7) at depths t / 4 + i * NT/4.
 struct Tile {
-  static constexpr int BK = 64;
-  static constexpr int CA = BK / 4;  // A chunks per tile row
   uint2 a[BM * CA / NT];
   uint4 w[BK * 4 / NT];
 
@@ -209,7 +211,7 @@ struct Tile {
 #pragma unroll
     for (int i = 0; i < BM * CA / NT; ++i) {
       const bits* p = pa + static_cast<size_t>(i) * (NT / CA) * depth;
-      a[i] = am + i * (NT / CA) < rows ? load4<kVector>(p, depth - ak)
+      a[i] = am + i * (NT / CA) < rows ? load4(p, depth - ak)
                                        : make_uint2(0, 0);
     }
     const int wk = k0 + t / 4;
@@ -218,7 +220,7 @@ struct Tile {
 #pragma unroll
     for (int i = 0; i < BK * 4 / NT; ++i) {
       const bits* p = pw + static_cast<size_t>(i) * (NT / 4) * 4 * hidden;
-      w[i] = wk + i * (NT / 4) < depth ? load8<kVector>(p, hidden - j0)
+      w[i] = wk + i * (NT / 4) < depth ? load8(p, hidden - j0)
                                        : make_uint4(0, 0, 0, 0);
     }
   }
@@ -242,13 +244,10 @@ struct Tile {
 };
 
 // acc[q] += A[m0 + warp*16 + (0..15)][:] . W[:][q*H + j0 + (0..7)]
-template <class Tile>
 __device__ void accumulate(const bits* __restrict__ a,
                            const bits* __restrict__ w, int rows, int depth,
-                           int hidden, int m0, int j0,
-                           bits (*as)[Tile::BK + 8], bits (*bs)[Tile::BK + 8],
-                           float (&acc)[4][4]) {
-  constexpr int BK = Tile::BK;
+                           int hidden, int m0, int j0, bits (*as)[BK + 8],
+                           bits (*bs)[BK + 8], float (&acc)[4][4]) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, tig = lane % 4;
   Tile tile;
@@ -273,20 +272,18 @@ __device__ void accumulate(const bits* __restrict__ a,
   }
 }
 
-template <bool kVector>
 __global__ void __launch_bounds__(NT)
 lstm_cell_bf16_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
                       const bits* __restrict__ c, const bits* __restrict__ wx,
                       const bits* __restrict__ wh, const bits* __restrict__ b,
                       bits* __restrict__ h_out, bits* __restrict__ c_out,
                       int rows, int features, int hidden) {
-  using T = Tile<kVector>;
-  __shared__ __align__(16) bits as[BM][T::BK + 8];
-  __shared__ __align__(16) bits bs[4 * BJ][T::BK + 8];
+  __shared__ __align__(16) bits as[BM][BK + 8];
+  __shared__ __align__(16) bits bs[4 * BJ][BK + 8];
   const int j0 = blockIdx.x * BJ, m0 = blockIdx.y * BM;
   float acc[4][4] = {};  // [gate][m16n8 accumulator fragment]
-  accumulate<T>(x, wx, rows, features, hidden, m0, j0, as, bs, acc);
-  accumulate<T>(h, wh, rows, hidden, hidden, m0, j0, as, bs, acc);
+  accumulate(x, wx, rows, features, hidden, m0, j0, as, bs, acc);
+  accumulate(h, wh, rows, hidden, hidden, m0, j0, as, bs, acc);
 
   // fragment element e holds row g + 8*(e/2), column 2*tig + e%2
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -297,10 +294,10 @@ lstm_cell_bf16_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
     const int j = j0 + 2 * tig + e % 2;
     if (m >= rows || j >= hidden) continue;
     const size_t idx = static_cast<size_t>(m) * hidden + j;
-    const float c_new =
-        sigmoid(acc[1][e] + bf(b[hidden + j])) * bf(c[idx])
-        + sigmoid(acc[0][e] + bf(b[j])) * tanhf(acc[2][e] + bf(b[2 * hidden + j]));
-    const float h_new = sigmoid(acc[3][e] + bf(b[3 * hidden + j])) * tanhf(c_new);
+    float h_new, c_new;
+    finish(acc[0][e] + bf(b[j]), acc[1][e] + bf(b[hidden + j]),
+           acc[2][e] + bf(b[2 * hidden + j]),
+           acc[3][e] + bf(b[3 * hidden + j]), bf(c[idx]), h_new, c_new);
     h_out[idx] = __bfloat16_as_ushort(__float2bfloat16(h_new));
     c_out[idx] = __bfloat16_as_ushort(__float2bfloat16(c_new));
   }
@@ -308,47 +305,224 @@ lstm_cell_bf16_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
 
 }  // namespace tc
 
+// ------------------------------------- bf16, cp.async ring + wgmma route
+
+namespace ring {
+
+constexpr int BM = 128;        // rows per block: one m64 slab per warpgroup
+constexpr int BJ = 16;         // hidden columns per block pair, per gate
+constexpr int BK = 64;         // depth of one tile: 128-byte rows
+constexpr int STAGES = 4;
+constexpr int NT = 256;        // 2 warpgroups
+constexpr int ROW = 128;       // bytes of one swizzled row
+constexpr int A_BYTES = BM * ROW;  // 16 KB: x/h rows x 64 k
+constexpr int W_BYTES = BK * ROW;  // 8 KB: 64 k x [4 gates x 16 columns]
+constexpr int STAGE = A_BYTES + W_BYTES;
+constexpr int PART = NT * 32 * 4;  // the partner's partial sums, 32 KB
+constexpr int SMEM = 1024 + STAGES * STAGE + PART;
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte
+// rows, 128-byte swizzled (as TMA's SWIZZLE_128B and the wgmma
+// descriptors lay it out): the chunk index XOR the row's low 3 bits
+__device__ __forceinline__ uint32_t sw(int row, int chunk) {
+  return row * ROW + ((chunk ^ (row & 7)) << 4);
+}
+
+// descriptors: A K-major (k contiguous), W MN-major (columns contiguous);
+// 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return sm90::sw128_desc(addr, 1, 1024 >> 4);
+}
+
+// Copies K tile `k0` of A ([rows][depth], BYTES-wide chunks) and of the
+// weights (W [depth][4H]: per gate q, columns q*H + j0 .. +15, which land
+// side by side in a 128-byte row) into stage memory at sa / sw_; what lies
+// outside the arrays is zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void load_tile(const bits* __restrict__ a,
+                                          const bits* __restrict__ w,
+                                          int rows, int depth, int hidden,
+                                          int m0, int j0, int k0,
+                                          uint32_t sa, uint32_t sw_) {
+  constexpr int EL = BYTES / 2;  // bf16 per chunk
+  constexpr int PER_ROW = BK / EL;
+  for (int e = threadIdx.x; e < BM * PER_ROW; e += NT) {
+    const int r = e / PER_ROW, c = e % PER_ROW, k = k0 + c * EL;
+    const bool in = m0 + r < rows && k < depth;  // depth % EL == 0
+    const bits* src = in ? a + static_cast<size_t>(m0 + r) * depth + k : a;
+    sm90::cp_async<BYTES>(sa + sw(r, c * EL / 8) + (c * EL % 8) * 2, src,
+                          in ? BYTES : 0);
+  }
+  for (int e = threadIdx.x; e < BK * 8; e += NT) {
+    const int kk = e / 8, c = e % 8, k = k0 + kk;  // chunk c: gate c / 2
+    const bool in = k < depth;  // hidden % BJ == 0: every column inside
+    const bits* src = in ? w + static_cast<size_t>(k) * 4 * hidden
+                             + static_cast<size_t>(c / 2) * hidden + j0
+                             + (c % 2) * 8
+                         : w;
+    sm90::cp_async<16>(sw_ + sw(kk, c), src, in ? 16 : 0);
+  }
+}
+
+// A block pair (a cluster of 2) owns 16 hidden columns of each gate slab
+// and up to 128 rows, and splits the K loop over [x | h] in two halves.
+// Rank 1 hands its partial sums to rank 0 through distributed shared
+// memory; rank 0 adds them and runs the gate math.
+//
+// Accumulator layout of m64n64 (warp w of the warpgroup, g = lane / 4,
+// tig = lane % 4): element 4J + e at row 16w + g + 8(e/2) and column
+// 8J + 2tig + e%2, i.e. gate J / 2, column 8(J%2) + 2tig + e%2 of the
+// block's 16: every thread holds all four gates of its (row, column)s.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(NT, 1)
+lstm_cell_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
+                 const bits* __restrict__ c, const bits* __restrict__ wx,
+                 const bits* __restrict__ wh, const bits* __restrict__ b,
+                 bits* __restrict__ h_out, bits* __restrict__ c_out,
+                 int rows, int features, int hidden) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t raw[];
+  uint8_t* smem = raw + ((1024 - sm90::smem_u32(raw) % 1024) % 1024);
+  const uint32_t base = sm90::smem_u32(smem);
+  float4* part = reinterpret_cast<float4*>(smem + STAGES * STAGE);
+  cg::cluster_group pair = cg::this_cluster();
+  const int rank = static_cast<int>(pair.block_rank());
+  const int j0 = (blockIdx.x / 2) * BJ, m0 = blockIdx.y * BM;
+  // the K loop runs over [x | h]: tiles 0 .. nx-1 of x.Wx, then h.Wh;
+  // rank 0 takes the first half of them, rank 1 the rest
+  const int nx = (features + BK - 1) / BK;
+  const int n_all = nx + (hidden + BK - 1) / BK;
+  const int t0 = rank == 0 ? 0 : (n_all + 1) / 2;
+  const int n_tiles = rank == 0 ? (n_all + 1) / 2 : n_all - t0;
+  // x rows are 8-byte aligned (F % 4 == 0), h rows 16-byte (H % 8 == 0)
+  auto load = [&](int i) {
+    const uint32_t sa = base + (i % STAGES) * STAGE;
+    const int t = t0 + i;
+    if (t < nx)
+      load_tile<8>(x, wx, rows, features, hidden, m0, j0, t * BK, sa,
+                   sa + A_BYTES);
+    else
+      load_tile<16>(h, wh, rows, hidden, hidden, m0, j0, (t - nx) * BK, sa,
+                    sa + A_BYTES);
+  };
+
+  const int group = threadIdx.x / 128;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) load(i);
+    sm90::cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    sm90::cp_async_wait<STAGES - 2>();  // tile i has landed (this thread's)
+    sm90::fence_proxy_async();          // ... visible to wgmma
+    __syncthreads();  // ... for every thread; and tile i-1 is consumed
+    if (i + STAGES - 1 < n_tiles) load(i + STAGES - 1);
+    sm90::cp_async_commit();
+
+    const uint32_t sa = base + (i % STAGES) * STAGE + group * 64 * ROW;
+    const uint32_t sb = base + (i % STAGES) * STAGE + A_BYTES;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s)  // 16 k a step: 32 bytes, 16 rows
+      sm90::wgmma_ss<1>(acc, desc(sa + 32 * s), desc(sb + 16 * s * ROW), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+  }
+  sm90::cp_async_wait<0>();
+
+  pair.sync();  // both blocks are running and done with their K halves
+  if (rank == 1) {
+    float4* dst = pair.map_shared_rank(part, 0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      dst[i * NT + threadIdx.x] = make_float4(acc[4 * i], acc[4 * i + 1],
+                                              acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  pair.sync();  // rank 1's sums have landed
+  if (rank == 1) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 p = part[i * NT + threadIdx.x];
+    acc[4 * i] += p.x;
+    acc[4 * i + 1] += p.y;
+    acc[4 * i + 2] += p.z;
+    acc[4 * i + 3] += p.w;
+  }
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + 64 * group + 16 * warp + g + 8 * (e / 2);
+      const int j = j0 + 8 * half + 2 * tig + e % 2;
+      if (m >= rows) continue;
+      const size_t idx = static_cast<size_t>(m) * hidden + j;
+      float h_new, c_new;
+      finish(acc[4 * half + e] + bf(b[j]),
+             acc[4 * (2 + half) + e] + bf(b[hidden + j]),
+             acc[4 * (4 + half) + e] + bf(b[2 * hidden + j]),
+             acc[4 * (6 + half) + e] + bf(b[3 * hidden + j]), bf(c[idx]),
+             h_new, c_new);
+      h_out[idx] = __bfloat16_as_ushort(__float2bfloat16(h_new));
+      c_out[idx] = __bfloat16_as_ushort(__float2bfloat16(c_new));
+    }
+}
+
+}  // namespace ring
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16, for every array. x: [rows][features];
-// h, c, h_out, c_out: [rows][hidden]; wx: [features][4*hidden];
-// wh: [hidden][4*hidden]; b: [4*hidden]; all row-major on the device.
-// Returns the CUDA error of the launch (0 on success).
-int vtpu_lstm_cell(int dtype, const void* x, const void* h, const void* c,
+// route: 0 = fp32 on FMA; 1 = bf16, element-wise loads; 2 = bf16 ring
+// (F % 4 == 0, H % 16 == 0, x 8-byte and h, wx, wh 16-byte aligned).
+// x: [rows][features]; h, c, h_out, c_out: [rows][hidden];
+// wx: [features][4*hidden]; wh: [hidden][4*hidden]; b: [4*hidden]; all
+// row-major on the device. Returns the CUDA error of the launch (0 on
+// success).
+int vtpu_lstm_cell(int route, const void* x, const void* h, const void* c,
                    const void* wx, const void* wh, const void* b,
                    void* h_out, void* c_out, int rows, int features,
                    int hidden, void* stream) {
   if (rows <= 0 || features <= 0 || hidden <= 0 || rows > 65535 * BM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const dim3 grid((hidden + BJ - 1) / BJ, (rows + BM - 1) / BM);
-    lstm_cell_fp32_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(h),
-        static_cast<const float*>(c), static_cast<const float*>(wx),
-        static_cast<const float*>(wh), static_cast<const float*>(b),
-        static_cast<float*>(h_out), static_cast<float*>(c_out), rows,
-        features, hidden);
-  } else if (dtype == 1) {
-    using tc::bits;
-    const dim3 grid((hidden + tc::BJ - 1) / tc::BJ,
-                    (rows + tc::BM - 1) / tc::BM);
-    auto aligned = [](const void* p, uintptr_t n) {
-      return reinterpret_cast<uintptr_t>(p) % n == 0;
-    };
-    const bool vector = features % 4 == 0 && hidden % 8 == 0
-        && aligned(x, 8) && aligned(h, 8) && aligned(wx, 16)
-        && aligned(wh, 16);
-    auto kernel = vector ? tc::lstm_cell_bf16_kernel<true>
-                         : tc::lstm_cell_bf16_kernel<false>;
-    kernel<<<grid, tc::NT, 0, s>>>(
-        static_cast<const bits*>(x), static_cast<const bits*>(h),
-        static_cast<const bits*>(c), static_cast<const bits*>(wx),
-        static_cast<const bits*>(wh), static_cast<const bits*>(b),
-        static_cast<bits*>(h_out), static_cast<bits*>(c_out), rows,
-        features, hidden);
+  auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const auto launch = [&](auto kernel, dim3 grid, int threads, int smem,
+                          auto type) {
+    using T = decltype(type);
+    kernel<<<grid, threads, smem, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(h),
+        static_cast<const T*>(c), static_cast<const T*>(wx),
+        static_cast<const T*>(wh), static_cast<const T*>(b),
+        static_cast<T*>(h_out), static_cast<T*>(c_out), rows, features,
+        hidden);
+  };
+  if (route == 0) {
+    launch(lstm_cell_fp32_kernel,
+           dim3((hidden + BJ - 1) / BJ, (rows + BM - 1) / BM), NT, 0, 0.f);
+  } else if (route == 1) {
+    launch(tc::lstm_cell_bf16_kernel,
+           dim3((hidden + tc::BJ - 1) / tc::BJ,
+                (rows + tc::BM - 1) / tc::BM),
+           tc::NT, 0, bits{});
+  } else if (route == 2) {
+    if (features % 4 || hidden % ring::BJ || !aligned(x, 8)
+        || !aligned(h, 16) || !aligned(wx, 16) || !aligned(wh, 16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        ring::lstm_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    launch(ring::lstm_cell_kernel,
+           dim3(2 * (hidden / ring::BJ), (rows + ring::BM - 1) / ring::BM),
+           ring::NT, ring::SMEM, bits{});
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

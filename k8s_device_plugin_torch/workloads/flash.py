@@ -7,9 +7,12 @@ out of every call, so the same kernel serves whole-sequence attention
 (:func:`flash_attention`, state from :func:`flash_state`, one call) and
 callers that absorb K/V block by block (the ``seq_block`` chunking here,
 the ring later). On a CUDA tensor :func:`flash_absorb` launches
-``csrc/flash_absorb.cu`` (see its header for the design and what bounds
-it); on a CPU tensor it runs :func:`_absorb_reference`, the same algebra in
-plain PyTorch.
+``csrc/flash_absorb.cu`` (see its header for the designs and what bounds
+them) by the route :func:`absorb_route` picks from dtype and head dim; on
+a CPU tensor it runs :func:`_absorb_reference`, the same algebra in plain
+PyTorch. The kernel reads q, k and v in place through their strides
+(:func:`check_strides` says which it takes), so the views of a fused QKV
+projection need no copy.
 
 Layouts follow the JAX package: q [B, Tq, H, D], k/v [B, Tk, H, D];
 m/l [B, H, Tq] fp32; o [B, Tq, H, D] fp32. The mask is a runtime ``kind``:
@@ -31,13 +34,20 @@ from .. import _build
 
 NEG_INF = -1e30
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 128
-# dtype, q, k, v, m, l, o, m_out, l_out, o_out, batch, heads, tq, tk, dim,
-# kind, scale, stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+#: the bf16 head dim of the wgmma + TMA route; other bf16 head dims take
+#: the mma.sync route
+WGMMA_HEAD_DIM = 64
+#: kernel routes by name: fp32 on FMA, bf16 on mma.sync, bf16 on wgmma
+#: with a TMA ring, and the last with P rounded to bf16 (measurement only:
+#: it misses the LM-case check, see the kernel's header)
+ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2, "wgmma_round_p": 3}
+# route, q, k, v, strides, m, l, o, m_out, l_out, o_out, batch, heads, tq,
+# tk, dim, kind, scale, stream
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def absorb_block_reference(q, k, v, allowed, m, l, o, scale: float):
@@ -109,14 +119,58 @@ def _check(q, k, v, kind, m, l, o) -> int:
     return kind
 
 
+def absorb_route(dtype, dim: int, tk: int) -> str:
+    """The kernel route for these shapes: fp32 on FMA; bf16 on wgmma with
+    a TMA ring at head dim 64 (and at least one key), else on mma.sync."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if dim == WGMMA_HEAD_DIM and tk > 0 else "mma_sync"
+
+
+def check_strides(name: str, t) -> None:
+    """Raise unless the kernel can read ``t`` [B, T, H, D] in place: the
+    head dim has unit stride, the base is 16-byte aligned, and every other
+    stride (of a dim longer than 1) is a multiple of 16 bytes, as 16-byte
+    loads and TMA need."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"flash_absorb: {name} has stride {t.stride(-1)} "
+                         f"on its last dim; the kernel needs 1")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_absorb: {name} is not 16-byte aligned")
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if size > 1 and (stride * t.element_size()) % 16:
+            raise ValueError(f"flash_absorb: {name} has strides "
+                             f"{tuple(t.stride())}; each but the last must "
+                             f"be a multiple of 16 bytes")
+
+
+def _kernel_strides(t) -> list[int]:
+    """Element strides (b, t, h) of ``t`` for the kernel; a dim of size 1
+    gets the stride a packed layout would give it (its stride is never
+    used, but TMA checks it)."""
+    _, n_t, n_h, n_d = t.shape
+    sh = t.stride(2) if n_h > 1 else n_d
+    st = t.stride(1) if n_t > 1 else n_h * sh
+    sb = t.stride(0) if t.shape[0] > 1 else n_t * st
+    return [sb, st, sh]
+
+
 def flash_absorb(q, k, v, kind, m, l, o):
     """One streaming-softmax absorption of K/V into (m, l, o); returns the
     new state in new tensors (the inputs are not written). Finalize with
     :func:`flash_finalize` once every block has been absorbed."""
-    kind = _check(q, k, v, kind, m, l, o)
-    scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return _absorb_reference(q, k, v, kind, m, l, o, scale)
+        kind = _check(q, k, v, kind, m, l, o)
+        return _absorb_reference(q, k, v, kind, m, l, o,
+                                 1.0 / math.sqrt(q.shape[-1]))
+    return _absorb_kernel(None, q, k, v, kind, m, l, o)
+
+
+def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
+    """Launch the kernel by ``route`` (a key of :data:`ROUTES`), or by the
+    one :func:`absorb_route` picks when it is None; measurements may force
+    another route that takes the same inputs."""
+    kind = _check(q, k, v, kind, m, l, o)
     if q.device.type != "cuda":
         raise ValueError(f"flash_absorb: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
@@ -125,27 +179,37 @@ def flash_absorb(q, k, v, kind, m, l, o):
                            "run under torch.no_grad() or inference_mode()")
     batch, tq, heads, dim = q.shape
     tk = k.shape[1]
-    if q.dtype not in _DTYPES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_absorb: no kernel for {q.dtype}")
     if dim > MAX_HEAD_DIM:
         raise ValueError(f"flash_absorb: head dim {dim} > {MAX_HEAD_DIM}")
     if q.dtype == torch.bfloat16 and dim % 8:
         raise ValueError(f"flash_absorb: bf16 needs a head dim that is a "
                          f"multiple of 8, got {dim}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("m", m), ("l", l),
-                    ("o", o)):
+    route = route or absorb_route(q.dtype, dim, tk)
+    if (route == "fma") != (q.dtype == torch.float32) or (
+            route.startswith("wgmma")
+            and absorb_route(q.dtype, dim, tk) != "wgmma"):
+        raise ValueError(f"flash_absorb: route {route} does not take "
+                         f"{q.dtype} at head dim {dim}, {tk} keys")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_strides(name, t)
+    for name, t in (("m", m), ("l", l), ("o", o)):
         if not t.is_contiguous():
             raise ValueError(f"flash_absorb: {name} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_absorb: {name} is not 16-byte aligned")
+    strides = (ctypes.c_longlong * 9)(
+        *_kernel_strides(q), *_kernel_strides(k), *_kernel_strides(v))
     m_out, l_out, o_out = (torch.empty_like(t) for t in (m, l, o))
     lib = _build.load("flash_absorb", _ARGTYPES)
     err = lib.vtpu_flash_absorb(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ROUTES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
         m.data_ptr(), l.data_ptr(), o.data_ptr(), m_out.data_ptr(),
         l_out.data_ptr(), o_out.data_ptr(), batch, heads, tq, tk, dim, kind,
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_absorb")
+        1.0 / math.sqrt(dim),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, f"flash_absorb ({route})")
     flash_absorb.launches += 1
     return m_out, l_out, o_out
 
@@ -201,7 +265,6 @@ def flash_attention(q, k, v, causal: bool = True,
         if t // sb > 16:
             sb = _cover_tile(t, -(-t // 16))
     if sb is None or sb >= t:
-        q, k, v = (x.contiguous() for x in (q, k, v))
         m, l, o = flash_state(q)
         m, l, o = flash_absorb(q, k, v, 1 if causal else 0, m, l, o)
         return flash_finalize(m, l, o, q.dtype)
@@ -209,11 +272,11 @@ def flash_attention(q, k, v, causal: bool = True,
     nb = t // sb
     outs = []
     for i in range(nb):
-        qi = q[:, i * sb:(i + 1) * sb].contiguous()
+        qi = q[:, i * sb:(i + 1) * sb]
         m, l, o = flash_state(qi)
         for j in range(i + 1 if causal else nb):
-            kj = k[:, j * sb:(j + 1) * sb].contiguous()
-            vj = v[:, j * sb:(j + 1) * sb].contiguous()
+            kj = k[:, j * sb:(j + 1) * sb]
+            vj = v[:, j * sb:(j + 1) * sb]
             kind = 1 if (causal and j == i) else 0
             m, l, o = flash_absorb(qi, kj, vj, kind, m, l, o)
         outs.append(flash_finalize(m, l, o, q.dtype))

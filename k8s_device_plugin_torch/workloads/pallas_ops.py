@@ -1,8 +1,9 @@
 """The fused LSTM cell: a hand-written CUDA kernel and its plain version.
 
 Counterpart of ``k8s_device_plugin_tpu/workloads/pallas_ops.py``. On a CUDA
-tensor :func:`lstm_cell` launches ``csrc/lstm_cell.cu`` (see its header for
-what bounds it and how it is laid out); on a CPU tensor it runs
+tensor :func:`lstm_cell` launches ``csrc/lstm_cell.cu`` by the route
+:func:`cell_route` picks (see the kernel's header for what bounds it and
+how each route is laid out); on a CPU tensor it runs
 :func:`lstm_cell_reference`, the same math in plain PyTorch. Unlike the TPU
 kernel it has no alignment rule: the kernel masks ragged B, F and H, so
 ai-benchmark case 5.1 (B=100, F=300, H=1024) runs through it.
@@ -19,10 +20,24 @@ import torch
 
 from .. import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dtype, x, h, c, wx, wh, b, h_out, c_out, rows, features, hidden, stream
+#: kernel routes by name: fp32 on FMA; bf16 with element-wise loads; bf16
+#: through the cp.async ring and wgmma (see the kernel's header)
+ROUTES = {"fma": 0, "elementwise": 1, "ring": 2}
+# route, x, h, c, wx, wh, b, h_out, c_out, rows, features, hidden, stream
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+
+
+def cell_route(x, h, wx, wh) -> str:
+    """The kernel route for these inputs: fp32 on FMA; bf16 through the
+    ring where its 8- and 16-byte copies fit (F % 4 == 0, H % 16 == 0,
+    x 8-byte and h, wx, wh 16-byte aligned), else element-wise loads."""
+    if x.dtype == torch.float32:
+        return "fma"
+    features, hidden = x.shape[-1], h.shape[-1]
+    fits = (features % 4 == 0 and hidden % 16 == 0 and x.data_ptr() % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (h, wx, wh)))
+    return "ring" if fits else "elementwise"
 
 
 def lstm_cell_reference(x, h, c, wx, wh, b):
@@ -54,17 +69,18 @@ def lstm_cell(x, h, c, wx, wh, b):
                              f" every input must be {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"lstm_cell: {name} is not contiguous")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"lstm_cell: no kernel for {x.dtype}")
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
     lib = _build.load("lstm_cell", _ARGTYPES)
+    route = cell_route(x, h, wx, wh)
     err = lib.vtpu_lstm_cell(
-        _DTYPES[x.dtype], x.data_ptr(), h.data_ptr(), c.data_ptr(),
+        ROUTES[route], x.data_ptr(), h.data_ptr(), c.data_ptr(),
         wx.data_ptr(), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(),
         c_out.data_ptr(), batch, features, hidden,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "lstm_cell")
+    _build.check(lib, err, f"lstm_cell ({route})")
     lstm_cell.launches += 1
     return h_out, c_out
 

@@ -44,8 +44,9 @@ def test_probe_chain_kernel_matches_plain(cuda, size):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
+# (250, 64, 256): the ring route over three row blocks of 112
 @pytest.mark.parametrize("batch,features,hidden", [
-    (8, 128, 128), (3, 30, 100), (100, 300, 1024)])
+    (8, 128, 128), (3, 30, 100), (100, 300, 1024), (250, 64, 256)])
 def test_lstm_cell_kernel_matches_plain(cuda, dtype, tol, batch, features,
                                         hidden):
     rng = np.random.default_rng(0)
@@ -155,16 +156,59 @@ def test_flash_attention_kernel_matches_dense(cuda, dtype, tol, seq_block):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("route", ["mma_sync", "wgmma"])
+@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("tq,tk", [(1000, 1000), (300, 77), (64, 200)])
+def test_flash_absorb_bf16_routes_match_plain(cuda, route, kind, tq, tk):
+    """Both bf16 routes at the LM's head dim, forced: T = 1000 wraps the
+    wgmma route's K/V ring many times; the others end mid-tile."""
+    q, k, v, m, l, o = _flash_args(2, tq, tk, 3, 64, torch.bfloat16, cuda,
+                                   seed=5)
+    got = flash._absorb_kernel(route, q, k, v, kind, m, l, o)
+    want = flash.absorb_block_reference(
+        q, k, v, _allowed(kind, tq, tk, cuda), m, l, o, 64 ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+
+
 def test_flash_absorb_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v, m, l, o = _flash_args(1, 8, 8, 1, 12, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         flash.flash_absorb(q, k, v, 0, m, l, o)
-    q, k, v, m, l, o = _flash_args(1, 8, 8, 2, 16, torch.float32, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash.flash_absorb(q.transpose(1, 2).contiguous().transpose(1, 2),
-                           k, v, 0, m, l, o)
+    for dtype, dim in ((torch.float32, 16), (torch.bfloat16, 64)):
+        q, k, v, m, l, o = _flash_args(1, 8, 8, 2, dim, dtype, cuda)
+        # a [B, H, T, D] buffer seen as [B, T, H, D]: read in place
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not qt.is_contiguous()
+        for g, w in zip(flash.flash_absorb(qt, k, v, 0, m, l, o),
+                        flash.flash_absorb(q, k, v, 0, m, l, o)):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError, match="last dim"):
+            flash.flash_absorb(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, v, 0, m, l, o)
     with pytest.raises(RuntimeError, match="no backward"):
         flash.flash_absorb(q.requires_grad_(), k, v, 0, m, l, o)
+
+
+@pytest.mark.parametrize("dtype,dim", [(torch.bfloat16, 64),
+                                       (torch.bfloat16, 32),
+                                       (torch.float32, 64)])
+def test_flash_absorb_reads_fused_qkv_views_in_place(cuda, dtype, dim):
+    """q, k, v as the views of one [B, T, 3, H, D] projection (what
+    layer_qkv returns): bit-equal to the same absorb on contiguous
+    copies, on every route."""
+    qkv = torch.randn(2, 200, 3, 4, dim,
+                      generator=torch.Generator().manual_seed(2)).to(cuda,
+                                                                     dtype)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    for kind in (0, 1):
+        m, l, o = flash.flash_state(q)
+        got = flash.flash_absorb(q, k, v, kind, m, l, o)
+        want = flash.flash_absorb(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), kind, m, l, o)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -137,3 +137,62 @@ def test_flash_absorb_on_cpu_counts_no_launch_and_checks_shapes():
     with pytest.raises(ValueError, match="no kernel for device"):
         tflash.flash_absorb(*(t.to("meta") for t in (q, k, v)), 0,
                             *(t.to("meta") for t in (m, l, o)))
+
+
+def test_check_strides_takes_what_the_kernel_reads_in_place():
+    """The wrapper's rule for q, k, v on the card, run here: a unit-stride
+    head dim, a 16-byte aligned base, and the other strides multiples of
+    16 bytes (dims of size 1 aside)."""
+    ok = [torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16),
+          torch.zeros(2, 8, 3, 4, 64, dtype=torch.bfloat16).unbind(2)[1],
+          torch.zeros(2, 4, 8, 16).transpose(1, 2),
+          torch.zeros(1, 1, 1, 4).as_strided((1, 1, 1, 4), (3, 5, 7, 1))]
+    for t in ok:
+        tflash.check_strides("q", t)
+    with pytest.raises(ValueError, match="last dim"):
+        tflash.check_strides("q", torch.zeros(2, 8, 64, 4).transpose(2, 3))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tflash.check_strides("k", torch.zeros(2 * 8 * 4 * 16 + 1)[1:]
+                             .view(2, 8, 4, 16))
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        tflash.check_strides("v", torch.zeros(2, 8, 3, 5))
+
+
+def test_routes_and_kernel_strides():
+    bf16 = torch.bfloat16
+    assert tflash.absorb_route(torch.float32, 64, 128) == "fma"
+    assert tflash.absorb_route(bf16, 64, 2048) == "wgmma"
+    assert tflash.absorb_route(bf16, 64, 0) == "mma_sync"
+    for dim in (16, 32, 128):
+        assert tflash.absorb_route(bf16, dim, 128) == "mma_sync"
+    q = torch.zeros(2, 8, 3, 4, 64).unbind(2)[0]
+    assert tflash._kernel_strides(q) == [8 * 3 * 4 * 64, 3 * 4 * 64, 64]
+    # dims of size 1 get a packed layout's stride, a multiple of 16 bytes
+    one = torch.zeros(1, 1, 1, 64).as_strided((1, 1, 1, 64), (7, 5, 3, 1))
+    assert tflash._kernel_strides(one) == [64, 64, 64]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_reads_layer_qkv_views(causal):
+    """flash_attention on the strided views that layer_qkv returns (no
+    copy is made for the kernel) equals it on contiguous inputs, and the
+    JAX flash_attention (Pallas in interpret mode) at 1e-5 in fp32."""
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             layer_qkv)
+    model = init_lm_params(torch.Generator().manual_seed(0), 64, 64, 4, 1,
+                           device="cpu")
+    h = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 32, 64)).astype(np.float32))
+    with torch.no_grad():
+        q, k, v = layer_qkv(model.layers[0], h, 4)
+    assert not any(t.is_contiguous() for t in (q, k, v))
+    for t in (q, k, v):
+        tflash.check_strides("qkv", t)
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    dense = tflash.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                                   causal=causal)
+    assert torch.equal(got, dense)
+    want = jflash.flash_attention(*_j(*(t.numpy() for t in (q, k, v))),
+                                  causal=causal, q_tile=8, kv_tile=16,
+                                  interpret=True)
+    _close(got.numpy(), want)

@@ -1,7 +1,7 @@
-"""Import hygiene: the port and its chip smoke import no JAX.
+"""Import hygiene: the port and its chip scripts import no JAX.
 
 Walks the AST of every module of ``k8s_device_plugin_torch/`` and of
-``chip_smoke.py`` and fails on any import of ``jax``, ``flax``, ``optax``
+``chip_smoke.py`` and ``chip_compare.py`` and fails on any import of ``jax``, ``flax``, ``optax``
 or ``k8s_device_plugin_tpu`` — at top level or inside a function.
 """
 
@@ -15,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "k8s_device_plugin_tpu"}
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "chip_compare.py")]
     for root, _, names in os.walk(os.path.join(REPO,
                                                "k8s_device_plugin_torch")):
         files += [os.path.join(root, n) for n in sorted(names)

@@ -120,3 +120,21 @@ def test_lstm_classifier_init_is_seeded_and_shaped():
     np.testing.assert_allclose((wh @ wh.T).numpy(), np.eye(8), atol=2e-2)
     assert a.cell.wx.dtype == torch.bfloat16
     assert a.head.weight.dtype == torch.float32
+
+
+def test_cell_route_follows_dtype_shape_and_alignment():
+    from k8s_device_plugin_torch.workloads import pallas_ops as tops
+
+    def args(batch, features, hidden, dtype, offset=0):
+        def t(*shape):
+            n = int(np.prod(shape))
+            return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+        return (t(batch, features), t(batch, hidden),
+                t(features, 4 * hidden), t(hidden, 4 * hidden))
+    assert tops.cell_route(*args(100, 300, 1024, torch.float32)) == "fma"
+    assert tops.cell_route(*args(100, 300, 1024, torch.bfloat16)) == "ring"
+    assert tops.cell_route(*args(8, 128, 128, torch.bfloat16)) == "ring"
+    for shape in ((3, 30, 100), (8, 128, 120)):  # F % 4, H % 16
+        assert tops.cell_route(*args(*shape, torch.bfloat16)) == "elementwise"
+    assert tops.cell_route(*args(100, 300, 1024, torch.bfloat16,
+                                 offset=1)) == "elementwise"

@@ -7,10 +7,12 @@ OTHER_TREE is another checkout of this repo (for instance the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
 lists). Each round runs, in a fresh process per tree and in the order
 other, this, this, other: the tree's own ``chip_smoke.phase_build``,
-``phase_lm_profile`` (the forward's and the decode call's device time,
-idle share, kernels and copies a call) and the runner's ``--model lm
---mode infer`` line (``tokens_per_s``). Prints one JSON line per phase,
-tagged with the tree, after the card's name and power limit.
+``phase_lstm_kernel`` and ``phase_flash_kernel`` (K2's and K3's times
+through their wrappers), ``phase_lm_profile`` (the forward's and the
+decode call's device time, idle share, kernels and copies a call) and the
+runner's ``--model lm --mode infer`` line (``tokens_per_s``). Prints one
+JSON line per phase, tagged with the tree, after the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 _CHILD = """
 import json, chip_smoke as c
 c.phase_build()
+c.phase_lstm_kernel()
+c.phase_flash_kernel()
 c.phase_lm_profile()
 line = c._runner_line(["--model", "lm", "--mode", "infer", "--steps", "5"])
 print(json.dumps({"phase": "lm_infer", **line}))

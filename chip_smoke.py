@@ -15,19 +15,29 @@ Phases, one JSON line each; any failure exits non-zero:
    naming the route that ran), and its time beside the plain version's,
    a library call's (where one exists) and the card's bound; for the
    flash absorb also its mma.sync route and its rounded-P variant;
-4-8. the main paths, each with every launch counter set to 0 just before
+4. gradients: the flash absorb's ``autograd.Function`` (K3 forward,
+   recompute backward) against dense attention's gradients, in fp32 and
+   at the LM's train chunking in bf16, with its forward and forward +
+   backward times beside dense attention's and SDPA's; the LSTM's
+   gradients through K2 against the plain cell's at case 5.2;
+5-12. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
    (batch 50 @ 346) natively and as a 4-way share under the cooperative
    limiter with the duty probe sampling beside it (``bench.measure``);
    LSTM case 5.1 inference through the runner; the long-context LM
    (``LM_CONFIG``, batch 8 x 2048, bf16) through the runner in
    ``--mode infer`` (attention through the flash absorb) and in
-   ``--mode decode`` (prompt 2048, 32 tokens a call);
-9. the LM's forward and decode step under torch.profiler: device time
-   by kernel and the device's idle share;
-10. correctness: the models on the card against the same weights on the
-   CPU at small inputs, and greedy decoding on the card token for token
-   against its from-scratch recompute;
+   ``--mode decode`` (prompt 2048, 32 tokens a call); then ``--mode
+   train``: the LM (batch 4 x 2048, 12 flash absorbs a step), ResNet-50
+   at case 1.2 (batch 20 @ 346), ResNet-152 at case 2.2 (batch 10 @ 256)
+   and the LSTM at case 5.2 (batch 10, 64 cell launches a step);
+13. the LM's forward, decode step and train step, and a train step of
+   ResNet-50 (case 1.2) and of the LSTM (case 5.2), under torch.profiler:
+   device time by kernel and the device's idle share;
+14. correctness: the models on the card against the same weights on the
+   CPU at small inputs, greedy decoding on the card token for token
+   against its from-scratch recompute, and one train step of the LM, the
+   ResNet and the LSTM on the card against the same step on the CPU;
 then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Needs no network; builds into ``build/kernels`` (git-ignored).
@@ -53,6 +63,8 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 #: ai-benchmark case 5.1: batch 100, 300 features, 1024 hidden
 LSTM_CASE = (100, 300, 1024)
+#: steps of each train path through the runner (after its 2 warm-up calls)
+TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5}
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,6 +109,21 @@ def device_ms(fn, iters: int, warmup: int = 2) -> tuple[float, str]:
     if total_us > 0:
         return total_us / 1e3 / iters, "profiler"
     return cuda_ms(fn, iters, warmup), "events"
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 products in full fp32 (a parity claim), restored after."""
+    import torch
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def max_abs_err(got, want) -> float:
@@ -396,6 +423,156 @@ def phase_flash_kernel() -> dict:
     return result
 
 
+def _grads(fn, inputs, cotangent=None):
+    """Gradients of ``fn(*inputs)`` in its inputs: of sum(sin(out)) in
+    fp32, or against ``cotangent``."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    if cotangent is None:
+        return torch.autograd.grad(torch.sin(out.float()).sum(), leaves)
+    return torch.autograd.grad(out, leaves, cotangent)
+
+
+def phase_flash_grad() -> dict:
+    """The flash absorb's autograd.Function on the card: K3 forward and
+    the recompute backward (the port of the JAX custom VJP). Gradients of
+    sum(sin(flash_attention)) in q, k, v against dense attention's: fp32
+    with TF32 off at 2 x 256, 4 heads of 64, whole-sequence and in 64-token
+    chunks, causal and not (atol 1e-5, rtol 1e-4, as
+    tests/test_attention.py); bf16 at the LM's train chunking (4 x 2048,
+    8 heads of 64, seq_block 1024, causal) within 2e-2 of the largest
+    |grad|. Then device times of one layer's attention at that shape:
+    the forward alone (3 K3 launches and the finalize), forward +
+    backward through the Function, the same through dense attention, and
+    SDPA's forward + backward (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+    from k8s_device_plugin_torch.workloads import flash, run
+    from k8s_device_plugin_torch.workloads.attention import \
+        reference_attention
+    fp32 = {}
+    with no_tf32():
+        q, k, v = _flash_args(2, 256, 256, 4, 64, torch.float32, 21,
+                              True)[:3]
+        for causal in (True, False):
+            for sb in (None, 64):
+                got = _grads(lambda *a: flash.flash_attention(
+                    *a, causal=causal, seq_block=sb), (q, k, v))
+                want = _grads(lambda *a: reference_attention(
+                    *a, causal=causal), (q, k, v))
+                errs = []
+                for name, g, w in zip("qkv", got, want):
+                    if not torch.allclose(g, w, atol=1e-5, rtol=1e-4):
+                        raise AssertionError(
+                            f"flash grad fp32 d{name} causal={causal} "
+                            f"seq_block={sb}: {max_abs_err(g, w)}")
+                    errs.append(max_abs_err(g, w))
+                fp32[f"causal{int(causal)}_block{sb}"] = max(errs)
+
+    heads, width, _, _ = run.LM_CONFIG
+    batch, seq = run.CASES["lm"][1], run.CASES["lm"][2]
+    dim, block = width // heads, 1024
+    q, k, v = _flash_args(batch, seq, seq, heads, dim, torch.bfloat16, 22,
+                          True)[:3]
+    launches = flash.flash_absorb.launches
+    got = _grads(lambda *a: flash.flash_attention(*a, seq_block=block),
+                 (q, k, v))
+    launches = flash.flash_absorb.launches - launches
+    want = _grads(reference_attention, (q, k, v))
+    bf16 = {}
+    for name, g, w in zip("qkv", got, want):
+        scale = w.float().abs().max().item()
+        bf16[name] = max_abs_err(g, w) / scale
+        if not bf16[name] <= 2e-2:
+            raise AssertionError(f"flash grad bf16 d{name}: "
+                                 f"{bf16[name]} of the largest |grad|")
+    del got, want
+
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                      ).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        fwd_ms, timing = device_ms(
+            lambda: flash.flash_attention(q, k, v, seq_block=block), 10)
+    fwd_bwd_ms, _ = device_ms(lambda: _grads(
+        lambda *a: flash.flash_attention(*a, seq_block=block), (q, k, v),
+        cot), 5)
+    dense_fwd_bwd_ms, _ = device_ms(
+        lambda: _grads(reference_attention, (q, k, v), cot), 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    cot_t = cot.transpose(1, 2).contiguous()
+    sdpa_fwd_bwd_ms, _ = device_ms(lambda: _grads(
+        lambda *a: F.scaled_dot_product_attention(*a, is_causal=True),
+        (qt, kt, vt), cot_t), 10)
+    with torch.no_grad():
+        sdpa_fwd_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 10)
+    times = {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+             "backward_share": (fwd_bwd_ms - fwd_ms) / fwd_bwd_ms,
+             "dense_fwd_bwd_ms": dense_fwd_bwd_ms,
+             "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+             "timing": timing}
+    emit("flash_grad", fp32_max_abs_err=fp32, bf16_shape=[batch, seq, heads,
+                                                          dim],
+         seq_block=block, bf16_err_of_largest=bf16,
+         k3_launches_per_fwd_bwd=launches, **times)
+    if launches != 3:
+        raise AssertionError(f"{launches} K3 launches for one layer's "
+                             f"attention at the train chunking, not 3")
+    return times
+
+
+def phase_lstm_grad() -> dict:
+    """The LSTM's gradients through K2 (the Function's recompute backward)
+    against the same model through the plain cell, at case 5.2 (batch 10,
+    300 features, 1024 hidden, 64 steps): fp32 with TF32 off within 1e-4
+    and bf16 within 5e-2 (the bf16 logits' bound of ``phase_correctness``)
+    of each parameter's largest |grad|."""
+    import numpy as np
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, pallas_ops, run
+    from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
+    _, batch, features = run.CASES["lstm"]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (batch, run.LSTM_STEPS, features)).astype(np.float32)).to("cuda")
+    labels = torch.randint(0, 2, (batch,),
+                           generator=torch.Generator().manual_seed(5)
+                           ).to("cuda")
+    report = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        model = harness.init_model(LSTMClassifier(features, dtype=dtype), 0,
+                                   "cuda")
+        grads = []
+        for plain in (False, True):
+            if plain:  # the same weights through the plain cell
+                model.cell.forward = lambda h, c, x_t: \
+                    pallas_ops.lstm_cell_reference(
+                        x_t, h, c, model.cell.wx, model.cell.wh,
+                        model.cell.b)
+            launches = pallas_ops.lstm_cell.launches
+            with no_tf32():
+                model.zero_grad(set_to_none=True)
+                harness.cross_entropy(model(x), labels).backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+            if not plain and (pallas_ops.lstm_cell.launches - launches
+                              != run.LSTM_STEPS):
+                raise AssertionError("the LSTM did not run K2 every step")
+        errs = {}
+        for name, want in grads[1].items():
+            got = grads[0][name]
+            if got is None:
+                raise AssertionError(f"lstm {dtype}: {name} got no grad")
+            scale = want.float().abs().max().item()
+            errs[name] = max_abs_err(got, want) / scale
+            if not (scale > 0 and errs[name] <= tol):
+                raise AssertionError(f"lstm grad {dtype} {name}: "
+                                     f"{errs[name]} of {scale}")
+        report[str(dtype).split(".")[1]] = errs
+    emit("lstm_grad", shape=[batch, run.LSTM_STEPS, features, 1024],
+         err_of_largest=report)
+    return report
+
+
 def _runner_line(argv) -> dict:
     """run.main(argv) with its stdout captured; its last JSON line."""
     from k8s_device_plugin_torch.workloads import run
@@ -480,25 +657,66 @@ def phase_main_path() -> dict:
         raise AssertionError(f"lm decode runner: {line}")
     emit("lm_decode", **line, seconds=time.perf_counter() - t0)
 
+    train = {}
+    for model, case in (("lm", "lm_train"), ("resnet50", "resnet50_train"),
+                        ("resnet152", "resnet152_train"),
+                        ("lstm", "lstm_train")):
+        t0 = time.perf_counter()
+        line = counted(case, lambda model=model: _runner_line(
+            ["--model", model, "--mode", "train", "--steps",
+             str(TRAIN_STEPS[model])]))
+        if not line["items_per_s"] > 0:
+            raise AssertionError(f"{model} train runner: {line}")
+        train[case] = line
+        emit(case, **line, steps=TRAIN_STEPS[model],
+             seconds=time.perf_counter() - t0)
+
     launches = {name: sum(p[name] for p in by_path.values())
                 for name in counters}
     emit("main_path_launches", **launches, by_path=by_path)
     # each kernel must have run on the path that carries it
-    own = {"probe_chain": "resnet50_share", "lstm_cell": "lstm_case_5_1",
-           "flash_absorb": "lm_infer"}
-    missing = [name for name, path in own.items()
+    own = {"probe_chain": ["resnet50_share"],
+           "lstm_cell": ["lstm_case_5_1", "lstm_train"],
+           "flash_absorb": ["lm_infer", "lm_train"]}
+    missing = [(name, path) for name, paths in own.items() for path in paths
                if by_path[path][name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their path: "
                              f"{missing}")
+    # a train call: 12 absorbs (3 per layer at 1024-token chunks), one
+    # cell a time step; the runner makes 2 warm-up calls before its steps
+    per_call = {("lm", "flash_absorb"): 12, ("lstm", "lstm_cell"): 64}
+    for (model, name), n in per_call.items():
+        path, calls = f"{model}_train", TRAIN_STEPS[model] + 2
+        if by_path[path][name] != n * calls:
+            raise AssertionError(f"{path}: {by_path[path][name]} {name} "
+                                 f"launches in {calls} calls, not {n} each")
     return launches
 
 
-def _profile(fn, iters: int) -> dict:
+#: kernel families by name, for a profile's breakdown (first match wins)
+FAMILIES = (("flash_absorb (K3)", ("flash",)),
+            ("lstm_cell (K2)", ("lstm",)),
+            ("matmul (cuBLAS, cuDNN)", ("gemm", "xmma", "cutlass", "sm90_",
+                                        "wgmma", "conv", "cudnn")),
+            ("copy", ("copy",)),
+            ("reduction", ("reduce", "softmax", "norm")))
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    for family, keys in FAMILIES:
+        if any(key in low for key in keys):
+            return family
+    return "elementwise and other"
+
+
+def _profile(fn, iters: int, top: int = 8) -> dict:
     """Where ``fn``'s time goes: wall ms per call (host clock around
     ``iters`` calls ending in a synchronize, profiler off), device ms per
-    call and the top kernels under torch.profiler (CUPTI), and the
-    device's idle share, 1 - device / wall (one stream: no overlap)."""
+    call, by kernel family (:data:`FAMILIES`) and for the ``top`` kernels,
+    under torch.profiler (CUPTI), and the device's idle share,
+    1 - device / wall (one stream: no overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -533,12 +751,17 @@ def _profile(fn, iters: int) -> dict:
     if not kernels:
         raise AssertionError("the profiler recorded no kernel")
     device_ms = sum(ms for _, ms, _ in kernels)
+    families = {}
+    for name, ms, _ in kernels:
+        families[_family(name)] = families.get(_family(name), 0.0) + ms
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
             "profile_attempts": attempt,
             "kernels_per_call": sum(n for _, _, n in kernels),
+            "families_ms": families,
             "top": [{"kernel": name[:150], "ms": ms, "per_call": n,
-                     "share": ms / device_ms} for name, ms, n in kernels[:8]],
+                     "share": ms / device_ms}
+                    for name, ms, n in kernels[:top]],
             # copies (layout changes and casts) by kernel, all of them
             "copies": [{"kernel": name[:150], "ms": ms, "per_call": n}
                        for name, ms, n in kernels if "copy" in name.lower()]}
@@ -568,6 +791,57 @@ def phase_lm_profile() -> None:
     emit("lm_decode_profile", tokens_per_call=run.DECODE_LEN,
          **_profile(lambda: decode.decode_from(
              model, *state, steps=run.DECODE_LEN), 2))
+
+
+def phase_lm_train_profile(attention: dict) -> None:
+    """One LM train step at the runner's shapes and weights (batch
+    4 x 2049 tokens, bf16, plain SGD) under the profiler, 2 timed; the
+    share of its device time that the flash backward's recompute takes,
+    from ``attention`` (``phase_flash_grad``'s times of one layer)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, run
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_loss)
+    heads, dim, vocab, layers = run.LM_CONFIG
+    batch, seq = run.CASES["lm"][1], run.CASES["lm"][2]
+    model = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                           heads, layers, dtype=torch.bfloat16,
+                           device="cuda")
+    tokens = torch.randint(0, vocab, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to("cuda")
+    optimizer = harness.sgd(model, momentum=0.0)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        lm_loss(model, tokens, use_flash=True).backward()
+        optimizer.step()
+    prof = _profile(step, 2, top=12)
+    recompute_ms = layers * (attention["fwd_bwd_ms"] - attention["fwd_ms"])
+    emit("lm_train_profile", tokens_per_step=batch * seq,
+         attention_backward_ms=recompute_ms,
+         attention_backward_share=recompute_ms / prof["device_ms"], **prof)
+
+
+def phase_model_train_profiles() -> None:
+    """One train step of ResNet-50 at case 1.2 (batch 20 @ 346) and of the
+    LSTM at case 5.2 (batch 10, 64 steps), built and stepped as the runner
+    does, under the profiler (3 timed each)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, run
+    for model_name, case in (("resnet50", "resnet50_train_profile"),
+                             ("lstm", "lstm_train_profile")):
+        _, batch, size = run.CASES[model_name]
+        model = harness.init_model(run.build_model(
+            model_name, torch.bfloat16, size, train=True), 0, "cuda")
+        shape = ((batch, run.LSTM_STEPS, size) if model_name == "lstm"
+                 else (batch, size, size, 3))
+        x = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+        labels = torch.zeros(batch, dtype=torch.long, device="cuda")
+        step = harness.make_train_fn(model, harness.sgd(model))
+        state = harness.init_train_state(model)
+        emit(case, batch=batch, **_profile(lambda: step(state, x, labels), 3,
+                                           top=12))
 
 
 def phase_correctness() -> None:
@@ -653,6 +927,147 @@ def _lm_correctness() -> dict:
     return report
 
 
+def _train_step_on(device, model, step, *batch) -> tuple:
+    """``model`` (on the CPU) copied to ``device``, one ``step(model,
+    *batch)`` there: (loss, state_dict before, state_dict after,
+    gradients), on the CPU in fp32."""
+    import copy
+
+    import torch
+    model = copy.deepcopy(model).to(device)
+    before = {k: v.detach().float().cpu().clone() for k, v in
+              model.state_dict().items()}
+    loss = step(model, *(t.to(device) for t in batch))
+    after = {k: v.detach().float().cpu() for k, v in
+             model.state_dict().items()}
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    return loss.item(), before, after, grads
+
+
+def _check_update(what, model, got, want, tol: float) -> dict:
+    """Each parameter's gradient and update p1 - p0 on the card (``got``,
+    ``want``: ``_train_step_on``'s results) against the CPU's, each within
+    ``tol`` of its largest magnitude; the update plus 2 fp32 ulps of the
+    weights (the rounding floor of p1 - p0 itself). Returns the largest
+    errors over those magnitudes."""
+    import torch
+    worst = {"grad_err": 0.0, "update_err": 0.0}
+    for name, _ in model.named_parameters():
+        g_got, g_want = got[3][name], want[3][name]
+        d_got = got[2][name] - got[1][name]
+        d_want = want[2][name] - want[1][name]
+        floor = 2 * torch.finfo(torch.float32).eps * \
+            want[1][name].abs().max().item()
+        for key, a, b, slack in (("grad_err", g_got, g_want, 0.0),
+                                 ("update_err", d_got, d_want, floor)):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            if not (scale > 0 and err <= tol * scale + slack):
+                raise AssertionError(f"{what} {key} of {name}: {err} over "
+                                     f"{tol} x {scale} + {slack}")
+            worst[key] = max(worst[key], err / scale)
+    return worst
+
+
+def phase_train_correctness() -> None:
+    """One train step on the card against the same step on the CPU from
+    the same weights, fp32 with TF32 off, at the bounds of
+    tests/test_torch_train*.py: the LM at LM_CONFIG's widths on 2 x 65
+    tokens through the flash absorb (K3 on the card, 32-token chunks, 3
+    absorbs a layer) and plain SGD, the loss at 1e-5 and each update within
+    1e-4 of its largest magnitude (each gradient too); the LSTM (batch
+    4 x 8 steps, K2) with
+    SGD-momentum, the same bounds; ResNet-50 (batch 2 @ 64) with
+    SGD-momentum, the loss at 1e-5, each BatchNorm running statistic within
+    1e-3 of its largest magnitude, the whole update within 0.25 in
+    relative L2 norm (a ReLU mask flipped by rounding moves a channel's
+    whole gradient at batch 2: the CPU's own fp32 and fp64 updates differ
+    by up to 8%, as tests/test_torch_train_models.py records)."""
+    import numpy as np
+    import torch
+    from k8s_device_plugin_torch.workloads import flash, harness, run
+    from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
+                                                             lm_loss)
+    from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
+    from k8s_device_plugin_torch.workloads.resnet import resnet50
+
+    def sgd_step(loss_of, momentum):
+        def step(model, *batch):
+            optimizer = harness.sgd(model, momentum=momentum)
+            harness.init_train_state(model)
+            loss = loss_of(model, *batch)
+            loss.backward()
+            optimizer.step()
+            return loss
+        return step
+
+    def loss_close(what, got, want):
+        if not abs(got - want) <= 1e-5 * (1 + abs(want)):
+            raise AssertionError(f"{what} loss {got} != {want}")
+        return abs(got - want)
+
+    report = {}
+    rng = np.random.default_rng(12)
+    with no_tf32():
+        heads, dim, vocab, layers = run.LM_CONFIG
+        lm = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                            heads, layers, device="cpu")
+        tokens = torch.randint(0, vocab, (2, 65),
+                               generator=torch.Generator().manual_seed(1))
+        step = sgd_step(lambda m, t: lm_loss(m, t, use_flash=True,
+                                             flash_seq_block=32), 0.0)
+        want = _train_step_on("cpu", lm, step, tokens)
+        launches = flash.flash_absorb.launches
+        got = _train_step_on("cuda", lm, step, tokens)
+        if flash.flash_absorb.launches - launches != 3 * layers:
+            raise AssertionError("the LM train step did not run K3 3 times "
+                                 "a layer")
+        report["lm"] = {"loss": got[0],
+                        "loss_err": loss_close("lm", got[0], want[0]),
+                        **_check_update("lm", lm, got, want, 1e-4)}
+
+        features = LSTM_CASE[1]
+        lstm = harness.init_model(LSTMClassifier(features,
+                                                 dtype=torch.float32),
+                                  0, "cpu")
+        x = torch.from_numpy(rng.standard_normal(
+            (4, 8, features)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 2, (4,)))
+        step = sgd_step(lambda m, x, y: harness.cross_entropy(m(x), y), 0.9)
+        want = _train_step_on("cpu", lstm, step, x, labels)
+        got = _train_step_on("cuda", lstm, step, x, labels)
+        report["lstm"] = {"loss": got[0],
+                          "loss_err": loss_close("lstm", got[0], want[0]),
+                          **_check_update("lstm", lstm, got, want, 1e-4)}
+
+        net = harness.init_model(resnet50(dtype=torch.float32), 0, "cpu")
+        x = torch.from_numpy(rng.standard_normal(
+            (2, 64, 64, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 1000, (2,)))
+        want = _train_step_on("cpu", net, step, x, labels)
+        got = _train_step_on("cuda", net, step, x, labels)
+        names = [n for n, _ in net.named_parameters()]
+        d_got = torch.cat([(got[2][n] - got[1][n]).flatten() for n in names])
+        d_want = torch.cat([(want[2][n] - want[1][n]).flatten()
+                            for n in names])
+        l2 = ((d_got - d_want).norm() / d_want.norm()).item()
+        if not l2 <= 0.25:
+            raise AssertionError(f"resnet50 update: relative L2 {l2}")
+        stats = 0.0
+        for n in want[2]:
+            if n.endswith(("running_mean", "running_var")):
+                w = want[2][n]
+                err = (got[2][n] - w).abs().max().item() / w.abs().max()
+                if not err <= 1e-3:
+                    raise AssertionError(f"resnet50 {n}: {err}")
+                stats = max(stats, float(err))
+        report["resnet50"] = {"loss": got[0],
+                              "loss_err": loss_close("resnet50", got[0],
+                                                     want[0]),
+                              "update_rel_l2": l2, "bn_stats_err": stats}
+    emit("train_correctness", **report)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -679,9 +1094,14 @@ def main() -> int:
     kernels = {"probe_chain": phase_probe_kernel(),
                "lstm_cell": phase_lstm_kernel(),
                "flash_absorb": phase_flash_kernel()}
+    attention = phase_flash_grad()
+    phase_lstm_grad()
     launches = phase_main_path()
     phase_lm_profile()
+    phase_lm_train_profile(attention)
+    phase_model_train_profiles()
     phase_correctness()
+    phase_train_correctness()
     for name, k in kernels.items():
         k["launches"] = launches[name]
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -9,7 +9,8 @@ weights across is a rename (``convert.lm_params_to_state_dict``).
 :func:`lm_forward` routes attention through the flash absorb
 (``flash.flash_attention``: the CUDA kernel on a card, its plain version on
 the CPU) with ``use_flash``, or through the dense
-:func:`reference_attention`. Sequence parallelism (a mesh, ring or
+:func:`reference_attention`; :func:`lm_loss` is the training objective,
+differentiable through both. Sequence parallelism (a mesh, ring or
 Ulysses) is not ported yet.
 """
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash import NEG_INF, flash_attention
+from .harness import cross_entropy
 
 
 def reference_attention(q, k, v, causal: bool = True):
@@ -204,3 +206,15 @@ def lm_forward(params: LM, tokens, mesh=None, causal: bool = True,
         x = x + att @ lyr.proj
         x = x + ffn(_norm(x), lyr)
     return _norm(x) @ params.embed.T
+
+
+def lm_loss(params: LM, tokens, use_flash: bool = False,
+            flash_seq_block: int | None = 1024, use_rope: bool = False):
+    """Next-token cross entropy in fp32, the mean over every position of
+    ``tokens`` [B, T + 1]. Differentiable through the flash absorb's
+    recompute backward when ``use_flash`` is on; the default
+    ``flash_seq_block`` keeps each backward score block at [1024, 1024]
+    (``flash.flash_attention``)."""
+    logits = lm_forward(params, tokens[:, :-1], use_flash=use_flash,
+                        flash_seq_block=flash_seq_block, use_rope=use_rope)
+    return cross_entropy(logits, tokens[:, 1:])

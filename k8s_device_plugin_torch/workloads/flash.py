@@ -19,8 +19,15 @@ m/l [B, H, Tq] fp32; o [B, Tq, H, D] fp32. The mask is a runtime ``kind``:
 0 attends to everything, 1 is causal on call-local row >= col, 2 masks
 everything and passes the state through unchanged.
 
-No gradients yet: on the card the wrapper raises when autograd would need
-one (the training slice brings the ``autograd.Function``).
+Gradients: where autograd records, :func:`flash_absorb` runs as a
+``torch.autograd.Function``, the counterpart of the JAX custom VJP
+(``_flash_absorb_vjp``). Its forward is the kernel on a CUDA tensor and
+the plain absorb on a CPU one; its backward, on both, recomputes one
+absorb through :func:`absorb_block_reference` and differentiates that, as
+the JAX backward differentiates ``absorb_block_jnp`` (there is no backward
+kernel in either package). The stabilizers are detached, so ``m`` carries
+no gradient. :func:`_absorb_kernel`, the measurement entry that forces a
+route, still raises when autograd would need a gradient.
 """
 
 from __future__ import annotations
@@ -155,15 +162,58 @@ def _kernel_strides(t) -> list[int]:
     return [sb, st, sh]
 
 
-def flash_absorb(q, k, v, kind, m, l, o):
-    """One streaming-softmax absorption of K/V into (m, l, o); returns the
-    new state in new tensors (the inputs are not written). Finalize with
-    :func:`flash_finalize` once every block has been absorbed."""
+def _absorb(q, k, v, kind, m, l, o):
+    """The absorb's forward: the kernel on a CUDA tensor, the plain absorb
+    on a CPU one."""
     if q.device.type == "cpu":
         kind = _check(q, k, v, kind, m, l, o)
         return _absorb_reference(q, k, v, kind, m, l, o,
                                  1.0 / math.sqrt(q.shape[-1]))
     return _absorb_kernel(None, q, k, v, kind, m, l, o)
+
+
+class _Absorb(torch.autograd.Function):
+    """The absorb with the JAX custom VJP's backward: the forward is
+    :func:`_absorb`; the backward recomputes the plain absorb from the
+    saved inputs and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind, m, l, o):
+        out = _absorb(q, k, v, kind, m, l, o)
+        ctx.kind = kind
+        ctx.save_for_backward(q, k, v, m, l, o)
+        ctx.mark_non_differentiable(out[0])  # m: built from detached maxima
+        return out
+
+    @staticmethod
+    def backward(ctx, dm, dl, do):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(saved, needs)]
+            q, k, v, m, l, o = inputs
+            _, l_new, o_new = _absorb_reference(q, k, v, ctx.kind, m, l, o,
+                                                1.0 / math.sqrt(q.shape[-1]))
+            wrt = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                (l_new, o_new), wrt, (dl, do), allow_unused=True))
+        dq, dk, dv, dm_in, dl_in, do_in = (next(grads) if need else None
+                                           for need in needs)
+        return dq, dk, dv, None, dm_in, dl_in, do_in
+
+
+def flash_absorb(q, k, v, kind, m, l, o):
+    """One streaming-softmax absorption of K/V into (m, l, o); returns the
+    new state in new tensors (the inputs are not written). Finalize with
+    :func:`flash_finalize` once every block has been absorbed.
+    Differentiable in q, k, v, l and o (see the module docstring); when
+    autograd records nothing (serving, ``inference_mode``) the forward
+    runs without the Function's bookkeeping."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, m, l, o)):
+        return _Absorb.apply(q, k, v, int(kind), m, l, o)
+    return _absorb(q, k, v, kind, m, l, o)
 
 
 def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
@@ -175,8 +225,9 @@ def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
         raise ValueError(f"flash_absorb: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, m, l, o)):
-        raise RuntimeError("flash_absorb: the kernel has no backward yet; "
-                           "run under torch.no_grad() or inference_mode()")
+        raise RuntimeError("flash_absorb: a forced route has no backward; "
+                           "differentiate flash_absorb, or run under "
+                           "torch.no_grad()")
     batch, tq, heads, dim = q.shape
     tk = k.shape[1]
     if q.dtype not in (torch.float32, torch.bfloat16):

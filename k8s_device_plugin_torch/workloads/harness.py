@@ -1,10 +1,14 @@
-"""Model set-up, inference and timing helpers for the port's workloads.
+"""Model set-up, inference, training and timing helpers for the port's
+workloads.
 
 Counterpart of the single-device part of
 ``k8s_device_plugin_tpu/workloads/harness.py`` (``init_model``,
-``make_infer_fn``, ``timed_warmup``, ``time_fn``), with
-``torch.cuda.synchronize`` where JAX waits with ``block_until_ready``.
-Meshes, the train step and the compile cache are not ported yet.
+``make_infer_fn``, ``cross_entropy``, ``seg_cross_entropy``,
+``make_train_fn``, ``init_train_state``, ``timed_warmup``, ``time_fn``),
+with ``torch.cuda.synchronize`` where JAX waits with ``block_until_ready``.
+The JAX train state's ``params`` and ``batch_stats`` live in the module,
+its ``opt_state`` in a ``torch.optim`` optimizer. Meshes and the compile
+cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -47,6 +52,49 @@ def make_infer_fn(model: nn.Module):
         with torch.inference_mode():
             return model(batch)
     return infer
+
+
+def cross_entropy(logits, labels):
+    """Mean negative log-likelihood in fp32 of ``labels`` [...] under
+    class-last ``logits`` [..., C]: [B, C] for a classifier, [B, T, V] for
+    the LM's next token."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None]).mean()
+
+
+#: the segmentation loss over channels-last [B, H, W, C] logits: the same
+#: class-last mean (``F.cross_entropy`` would want the classes at dim 1)
+seg_cross_entropy = cross_entropy
+
+
+def sgd(model: nn.Module, lr: float = 1e-3,
+        momentum: float = 0.9) -> torch.optim.SGD:
+    """``optax.sgd(lr, momentum)``: without dampening or Nesterov both
+    momentum buffers start at the first gradient and the updates agree;
+    ``momentum=0`` is plain ``p - lr * g``."""
+    return torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
+                           dampening=0.0, nesterov=False)
+
+
+def init_train_state(model: nn.Module) -> dict:
+    """Put ``model`` (weights from :func:`init_model` or a state_dict) in
+    train mode and start the step counter: ``{"step": 0}``."""
+    model.train()
+    return {"step": 0}
+
+
+def make_train_fn(model: nn.Module, optimizer: torch.optim.Optimizer,
+                  loss_fn=cross_entropy):
+    """(state, batch, labels) -> (state, loss): one step of ``optimizer``
+    on ``loss_fn(model(batch), labels)``; BatchNorm statistics update in
+    the forward, as the JAX step's mutable ``batch_stats``."""
+    def train_step(state, batch, labels):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model(batch), labels)
+        loss.backward()
+        optimizer.step()
+        return {"step": state["step"] + 1}, loss.detach()
+    return train_step
 
 
 def count_flops(model: nn.Module, batch: torch.Tensor) -> int:

@@ -10,6 +10,13 @@ ai-benchmark case 5.1 (B=100, F=300, H=1024) runs through it.
 
 Layout follows the JAX package: x [B, F], h/c [B, H], wx [F, 4H],
 wh [H, 4H], b [4H], gates in [i|f|g|o] order.
+
+Gradients: where autograd records, :func:`lstm_cell` runs as a
+``torch.autograd.Function`` whose backward recomputes
+:func:`lstm_cell_reference` from the saved inputs and differentiates it,
+on both devices. The JAX package has no backward kernel either: at the
+case-5 shapes its ``lstm_cell`` takes the jnp path, which JAX
+differentiates.
 """
 
 from __future__ import annotations
@@ -49,8 +56,42 @@ def lstm_cell_reference(x, h, c, wx, wh, b):
     return h_new.to(h.dtype), c_new.to(c.dtype)
 
 
+class _Cell(torch.autograd.Function):
+    """The cell with a recompute backward: the forward is the kernel (CUDA)
+    or the plain cell (CPU); the backward differentiates the plain cell on
+    the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, wx, wh, b):
+        ctx.save_for_backward(x, h, c, wx, wh, b)
+        return _cell(x, h, c, wx, wh, b)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            grads = iter(torch.autograd.grad(
+                lstm_cell_reference(*inputs),
+                [t for t in inputs if t.requires_grad], (dh, dc)))
+        return tuple(next(grads) if need else None for need in needs)
+
+
 def lstm_cell(x, h, c, wx, wh, b):
-    """One fused LSTM step; returns (h', c')."""
+    """One fused LSTM step; returns (h', c'). Differentiable in every
+    input (see the module docstring); when autograd records nothing
+    (``inference_mode``, as the runner's infer path) the forward runs
+    without the Function's bookkeeping, a host cost on every time step."""
+    args = (x, h, c, wx, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _Cell.apply(*args)
+    return _cell(*args)
+
+
+def _cell(x, h, c, wx, wh, b):
+    """The cell's forward: the plain cell on a CPU tensor; on a CUDA one,
+    check the inputs and launch the kernel by :func:`cell_route`."""
     if x.device.type == "cpu":
         return lstm_cell_reference(x, h, c, wx, wh, b)
     if x.device.type != "cuda":

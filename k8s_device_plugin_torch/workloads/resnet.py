@@ -8,6 +8,14 @@ activations (as Flax computes it), and an fp32 classifier head. Inputs are
 NHWC like the JAX model's; the NCHW view of an NHWC tensor is already
 channels_last, so no copy is made.
 
+Training follows Flax's ``nn.Conv(dtype=bf16)`` and ``nn.BatchNorm``:
+the conv weights are kept in ``param_dtype`` (fp32 for training, so SGD's
+small updates are not rounded away) and cast to the activations' dtype
+for each conv; with the default ``param_dtype=dtype`` (inference) the cast
+is a no-op. :class:`BatchNorm` updates its running variance with the
+biased batch variance, as Flax does (``nn.BatchNorm2d`` takes the
+unbiased one).
+
 Flax's ``padding="SAME"`` pads ``total // 2`` before and the rest after,
 so a stride-2 window on an even input pads 0 before and 1 after, where
 PyTorch's symmetric ``padding=1`` would shift the output by one pixel.
@@ -49,37 +57,63 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
     return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
 
 
-class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with Flax's "SAME" padding, worked out per input."""
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype, whatever the weight's
+    (Flax's ``dtype`` beside its ``param_dtype``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
+class SameConv2d(Conv2d):
+    """:class:`Conv2d` with Flax's "SAME" padding, worked out per input."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, pad = _pad_same(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.weight, self.bias, self.stride, pad)
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
+                        pad)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """Flax's ``nn.BatchNorm(momentum=0.9)``: in training it normalizes
+    with the batch statistics and moves the running ones a tenth of the
+    way to the batch mean and the BIASED batch variance; in eval it is
+    ``nn.BatchNorm2d``."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # the batch statistics come back as mean and 1 / sqrt(var + eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
+        return y
 
 
 class BottleneckV2(nn.Module):
     """Pre-activation bottleneck (BN-ReLU-Conv x3 + projection)."""
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 param_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.preact_bn = _bn(in_channels)
+        self.preact_bn = BatchNorm(in_channels)
         self.proj = None
         if in_channels != filters * 4 or stride != 1:
-            self.proj = nn.Conv2d(in_channels, filters * 4, 1, stride=stride,
-                                  bias=False, dtype=dtype)
-        self.conv1 = nn.Conv2d(in_channels, filters, 1, bias=False,
-                               dtype=dtype)
-        self.bn1 = _bn(filters)
+            self.proj = Conv2d(in_channels, filters * 4, 1, stride=stride,
+                               bias=False, dtype=param_dtype)
+        self.conv1 = Conv2d(in_channels, filters, 1, bias=False,
+                            dtype=param_dtype)
+        self.bn1 = BatchNorm(filters)
         self.conv2 = SameConv2d(filters, filters, 3, stride=stride,
-                                bias=False, dtype=dtype)
-        self.bn2 = _bn(filters)
-        self.conv3 = nn.Conv2d(filters, filters * 4, 1, bias=False,
-                               dtype=dtype)
+                                bias=False, dtype=param_dtype)
+        self.bn2 = BatchNorm(filters)
+        self.conv3 = Conv2d(filters, filters * 4, 1, bias=False,
+                            dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         preact = F.relu(self.preact_bn(x))
@@ -90,23 +124,28 @@ class BottleneckV2(nn.Module):
 
 
 class ResNetV2(nn.Module):
+    """Convs compute in ``dtype`` on weights kept in ``param_dtype``
+    (default ``dtype``; fp32 to train)."""
+
     def __init__(self, depth: int = 50, num_classes: int = 1000,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
-        self.conv_root = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
-                                   dtype=dtype)
+        param_dtype = param_dtype or dtype
+        self.conv_root = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                                dtype=param_dtype)
         channels = 64
         self.block_names = []
         for i, n_blocks in enumerate(DEPTHS[depth]):
             for j in range(n_blocks):
                 stride = 2 if j == 0 and i > 0 else 1
                 name = f"stage{i + 1}_block{j + 1}"
-                self.add_module(name, BottleneckV2(channels, 64 * 2 ** i,
-                                                   stride, dtype=dtype))
+                self.add_module(name, BottleneckV2(
+                    channels, 64 * 2 ** i, stride, param_dtype=param_dtype))
                 self.block_names.append(name)
                 channels = 64 * 2 ** i * 4
-        self.final_bn = _bn(channels)
+        self.final_bn = BatchNorm(channels)
         # classifier head in fp32, as the JAX model's Dense(dtype=float32)
         self.head = nn.Linear(channels, num_classes)
         self.to(memory_format=torch.channels_last)
@@ -125,9 +164,13 @@ class ResNetV2(nn.Module):
         return self.head(x.float())
 
 
-def resnet50(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNetV2:
-    return ResNetV2(depth=50, num_classes=num_classes, dtype=dtype)
+def resnet50(num_classes: int = 1000, dtype=torch.bfloat16,
+             param_dtype=None) -> ResNetV2:
+    return ResNetV2(depth=50, num_classes=num_classes, dtype=dtype,
+                    param_dtype=param_dtype)
 
 
-def resnet152(num_classes: int = 1000, dtype=torch.bfloat16) -> ResNetV2:
-    return ResNetV2(depth=152, num_classes=num_classes, dtype=dtype)
+def resnet152(num_classes: int = 1000, dtype=torch.bfloat16,
+              param_dtype=None) -> ResNetV2:
+    return ResNetV2(depth=152, num_classes=num_classes, dtype=dtype,
+                    param_dtype=param_dtype)

@@ -5,16 +5,18 @@ suite's models, activates the cooperative limiter (so memory and
 duty-cycle caps are honored and usage lands in the shared region for the
 monitor), and prints steady-state throughput as the same JSON fields.
 Ported so far, on one device: ``resnet50``, ``resnet152`` and ``lstm`` in
-``--mode infer``, and the long-context ``lm`` in ``--mode infer`` (on the
-card its attention runs through the flash-absorb kernel) and
-``--mode decode`` (KV-cache serving); other models and modes exit with
-"not yet ported".
+``--mode infer`` and ``--mode train``, and the long-context ``lm`` in
+``--mode infer`` and ``--mode train`` (on the card its attention runs
+through the flash-absorb kernel, in training with the recompute backward)
+and ``--mode decode`` (KV-cache serving); other models and modes exit
+with "not yet ported".
 
 Usage:
   python3 -m k8s_device_plugin_torch.workloads.run --model lstm \
-      [--batch N] [--size S] [--steps K] [--device cuda|cpu]
+      [--mode infer|train] [--batch N] [--size S] [--steps K] \
+      [--device cuda|cpu]
   python3 -m k8s_device_plugin_torch.workloads.run --model lm \
-      --mode infer|decode [--batch N] [--size SEQ] [--steps K]
+      --mode infer|train|decode [--batch N] [--size SEQ] [--steps K]
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ CASES = {
     "lm": (8, 4, 2048),
     "moe-lm": (8, 4, 2048),
 }
-PORTED = {"resnet50": ("infer",), "resnet152": ("infer",),
-          "lstm": ("infer",), "lm": ("infer", "decode")}
+PORTED = {"resnet50": ("infer", "train"), "resnet152": ("infer", "train"),
+          "lstm": ("infer", "train"), "lm": ("infer", "train", "decode")}
 #: time steps of the LSTM case's input sequence (as the JAX runner)
 LSTM_STEPS = 64
 #: one LM shape for every lm mode: heads, dim, vocab, layers
@@ -47,14 +49,19 @@ LM_CONFIG = (8, 512, 8192, 4)
 DECODE_LEN = 32
 
 
-def build_model(name: str, dtype: torch.dtype, size: int):
-    """The model of case ``name``; ``size`` is the LSTM's feature width."""
+def build_model(name: str, dtype: torch.dtype, size: int,
+                train: bool = False):
+    """The model of case ``name``; ``size`` is the LSTM's feature width.
+    To train, the ResNets keep fp32 weights (Flax's ``param_dtype``) and
+    compute in ``dtype``; the LSTM keeps its weights in ``dtype``, as the
+    JAX cell declares them."""
     from .lstm import LSTMClassifier
     from .resnet import resnet50, resnet152
+    param_dtype = torch.float32 if train else dtype
     if name == "resnet50":
-        return resnet50(dtype=dtype)
+        return resnet50(dtype=dtype, param_dtype=param_dtype)
     if name == "resnet152":
-        return resnet152(dtype=dtype)
+        return resnet152(dtype=dtype, param_dtype=param_dtype)
     if name == "lstm":
         # the fused cell: the CUDA kernel on a card, its plain version on CPU
         return LSTMClassifier(features=size, dtype=dtype)
@@ -91,25 +98,40 @@ def _bench_loop(args, call, device, limiter, batch: int, extra_fn) -> int:
 def _run_lm(args, batch: int, seq: int, device, limiter) -> int:
     """The long-context causal LM at ``LM_CONFIG`` in bf16, random weights
     from seed 0, tokens from seed 1. On the card attention runs through
-    the flash absorb (one whole-sequence causal absorb per layer): the
-    dense oracle would hold [B, H, T, T] fp32 scores, 1 GiB a layer at
-    8 x 2048. On the CPU it is the dense oracle, as the JAX runner off
-    the TPU."""
-    from .attention import init_lm_params, lm_forward
+    the flash absorb: one whole-sequence causal absorb per layer to infer
+    (the dense oracle would hold [B, H, T, T] fp32 scores, 1 GiB a layer
+    at 8 x 2048); to train, ``lm_loss``'s 1024-token chunks, whose
+    recompute backward holds one [B, H, 1024, 1024] score block at a
+    time, and plain SGD on the bf16 weights (``p - 1e-3 g``). On the CPU
+    it is the dense oracle, as the JAX runner off the TPU."""
+    from . import harness
+    from .attention import init_lm_params, lm_forward, lm_loss
     heads, dim, vocab, layers = LM_CONFIG
     model = init_lm_params(torch.Generator().manual_seed(0), vocab, dim,
                            heads, layers, dtype=torch.bfloat16,
                            device=device)
-    tokens = torch.randint(0, vocab, (batch, seq),
+    # +1 to train: the next-token shift leaves ``seq`` positions
+    length = seq + 1 if args.mode == "train" else seq
+    tokens = torch.randint(0, vocab, (batch, length),
                            generator=torch.Generator().manual_seed(1)
                            ).to(device)
     if args.mode == "decode":
         return _run_lm_decode(args, model, tokens, device, limiter)
     use_flash = device.type == "cuda"
 
-    def call():
-        with torch.inference_mode():
-            return lm_forward(model, tokens, use_flash=use_flash)
+    if args.mode == "infer":
+        def call():
+            with torch.inference_mode():
+                return lm_forward(model, tokens, use_flash=use_flash)
+    else:
+        optimizer = harness.sgd(model, momentum=0.0)
+
+        def call():
+            optimizer.zero_grad(set_to_none=True)
+            loss = lm_loss(model, tokens, use_flash=use_flash)
+            loss.backward()
+            optimizer.step()
+            return loss
     return _bench_loop(
         args, call, device, limiter, batch,
         lambda dt: {"model": args.model, "mode": args.mode, "seq": seq,
@@ -179,21 +201,36 @@ def main(argv=None) -> int:
     from . import harness
 
     limiter = limiter_mod.install()  # no-op without the vTPU env contract
-    infer_b, _, size = CASES[args.model]
-    batch = args.batch or infer_b
+    infer_b, train_b, size = CASES[args.model]
+    # decode is an inference-side workload: serving batch, not train
+    batch = args.batch or (train_b if args.mode == "train" else infer_b)
     size = args.size or size
     if args.model == "lm":
         return _run_lm(args, batch, size, device, limiter)
+    train = args.mode == "train"
     model = harness.init_model(
-        build_model(args.model, torch.bfloat16, size), 0, device)
+        build_model(args.model, torch.bfloat16, size, train), 0, device)
     if args.model == "lstm":
         x = torch.ones(batch, LSTM_STEPS, size, dtype=torch.bfloat16,
                        device=device)
     else:
         x = torch.ones(batch, size, size, 3, dtype=torch.bfloat16,
                        device=device)
-    infer = harness.make_infer_fn(model)
-    return _bench_loop(args, lambda: infer(x), device, limiter, batch,
+    if train:
+        labels = torch.zeros(batch, dtype=torch.long, device=device)
+        step = harness.make_train_fn(model, harness.sgd(model))
+        state = harness.init_train_state(model)
+
+        def call():
+            nonlocal state
+            state, loss = step(state, x, labels)
+            return loss
+    else:
+        infer = harness.make_infer_fn(model)
+
+        def call():
+            return infer(x)
+    return _bench_loop(args, call, device, limiter, batch,
                        lambda dt: {"model": args.model, "mode": args.mode})
 
 

@@ -156,6 +156,62 @@ def test_flash_attention_kernel_matches_dense(cuda, dtype, tol, seq_block):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-4)),
+                                       (torch.bfloat16, (2e-2, 2e-2))])
+@pytest.mark.parametrize("seq_block", [None, 32])
+def test_flash_attention_gradients_on_the_card_match_dense(cuda, dtype, tol,
+                                                           seq_block):
+    """Grads of sum(sin(flash_attention)) through the Function (K3 forward,
+    recompute backward) against dense attention's, causal and not; fp32 at
+    tests/test_attention.py's 1e-5 / 1e-4. K3 runs once a chunk pair."""
+    from k8s_device_plugin_torch.workloads.attention import \
+        reference_attention
+    q, k, v, *_ = _flash_args(2, 96, 96, 4, 64, dtype, cuda, seed=4)
+    for causal in (True, False):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = flash.flash_absorb.launches
+        out = flash.flash_attention(*qkv, causal=causal, seq_block=seq_block)
+        pairs = 1 if seq_block is None else (6 if causal else 9)
+        assert flash.flash_absorb.launches == before + pairs
+        got = torch.autograd.grad(torch.sin(out.float()).sum(), qkv)
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(torch.sin(reference_attention(
+            *qkv, causal=causal).float()).sum(), qkv)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g.float(), w.float(), atol=tol[0],
+                                       rtol=tol[1])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_lstm_cell_weights_get_their_gradients_on_the_card(cuda, dtype, tol):
+    """The cell's weights get the plain cell's gradients through the kernel
+    (case 5.2: batch 10, 300 features, 1024 hidden, 4 steps). A kernel
+    that wrote fresh tensors outside autograd left wx, wh and b with no
+    gradient at all, and raised nothing."""
+    model = harness.init_model(LSTMClassifier(300, dtype=dtype), 0, cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (10, 4, 300)).astype(np.float32)).to(cuda)
+    labels = torch.zeros(10, dtype=torch.long, device=cuda)
+    before = pallas_ops.lstm_cell.launches
+    harness.cross_entropy(model(x), labels).backward()
+    assert pallas_ops.lstm_cell.launches == before + 4
+    got = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    plain = LSTMClassifier(300, dtype=dtype).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    plain.cell.forward = lambda h, c, x_t: pallas_ops.lstm_cell_reference(
+        x_t, h, c, plain.cell.wx, plain.cell.wh, plain.cell.b)
+    harness.cross_entropy(plain(x), labels).backward()
+    for name, p in plain.named_parameters():
+        assert got[name] is not None, name
+        scale = p.grad.float().abs().max()
+        assert scale > 0, name
+        torch.testing.assert_close(got[name].float() / scale,
+                                   p.grad.float() / scale, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("route", ["mma_sync", "wgmma"])
 @pytest.mark.parametrize("kind", [0, 1])
 @pytest.mark.parametrize("tq,tk", [(1000, 1000), (300, 77), (64, 200)])
@@ -186,8 +242,16 @@ def test_flash_absorb_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError, match="last dim"):
             flash.flash_absorb(q.transpose(2, 3).contiguous().transpose(2, 3),
                                k, v, 0, m, l, o)
+    # the measurement entry that forces a route has no backward; the
+    # wrapper differentiates through the plain absorb
     with pytest.raises(RuntimeError, match="no backward"):
-        flash.flash_absorb(q.requires_grad_(), k, v, 0, m, l, o)
+        flash._absorb_kernel("wgmma", q.requires_grad_(), k, v, 0, m, l, o)
+    _, l1, o1 = flash.flash_absorb(q, k, v, 0, m, l, o)
+    (got,) = torch.autograd.grad(o1.sum() + l1.sum(), q)
+    _, l2, o2 = flash._absorb_reference(q, k, v, 0, m, l, o, dim ** -0.5)
+    (want,) = torch.autograd.grad(o2.sum() + l2.sum(), q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.parametrize("dtype,dim", [(torch.bfloat16, 64),

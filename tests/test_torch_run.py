@@ -83,11 +83,37 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
     assert trun.CASES["lm"] == jrun.CASES["lm"]
 
 
+@pytest.mark.parametrize("model", ["lm", "resnet50", "lstm"])
+def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
+                                                 capsys):
+    """--mode train at tiny sizes: the JAX runner's keys, the train batch
+    when --batch is not given, and no kernel launched on the CPU."""
+    monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
+    monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
+    tiny = ["--model", model, "--mode", "train", "--size", "16", "--steps",
+            "1"] + (["--batch", "2"] if model != "lstm" else [])
+    assert jrun.main(tiny) == 0
+    want = _last_json(capsys)
+    from k8s_device_plugin_torch.workloads.flash import flash_absorb
+    before = (flash_absorb.launches, _lstm_launches())
+    assert trun.main(tiny + ["--device", "cpu"]) == 0
+    got = _last_json(capsys)
+    assert sorted(got) == sorted(want)
+    assert (got["model"], got["mode"]) == (model, "train")
+    assert got["batch"] == want["batch"] == (
+        2 if model != "lstm" else trun.CASES["lstm"][1])
+    assert got["items_per_s"] > 0
+    if model == "lm":
+        assert (got["seq"], got["sp"]) == (16, 1) and got["tokens_per_s"] > 0
+    assert (flash_absorb.launches, _lstm_launches()) == before
+    assert trun.CASES[model] == jrun.CASES[model]
+
+
 @pytest.mark.parametrize("argv", [
     ["--model", "vgg16"],
     ["--model", "moe-lm"],
-    ["--model", "lm", "--mode", "train"],
-    ["--model", "resnet50", "--mode", "train"],
+    ["--model", "vgg16", "--mode", "train"],
+    ["--model", "deeplab", "--mode", "train"],
     ["--model", "lstm", "--multichip"],
 ])
 def test_runner_refuses_what_is_not_ported(argv):

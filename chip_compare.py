@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the LM's serving path of two checkouts on one card, in turns.
+"""Compare the serving paths of two checkouts on one card, in turns.
 
     python3 chip_compare.py OTHER_TREE [--rounds 2]
 
@@ -9,8 +9,9 @@ lists). Each round runs, in a fresh process per tree and in the order
 other, this, this, other: the tree's own ``chip_smoke.phase_build``,
 ``phase_lstm_kernel`` and ``phase_flash_kernel`` (K2's and K3's times
 through their wrappers), ``phase_lm_profile`` (the forward's and the
-decode call's device time, idle share, kernels and copies a call) and the
-runner's ``--model lm --mode infer`` line (``tokens_per_s``). Prints one
+decode call's device time, idle share, kernels and copies a call), the
+runner's ``--model lm --mode infer`` line (``tokens_per_s``) and three
+of its LSTM case 5.1 lines (``--model lstm``, 500 calls). Prints one
 JSON line per phase, tagged with the tree, after the card's name and
 power limit.
 """
@@ -33,6 +34,9 @@ c.phase_flash_kernel()
 c.phase_lm_profile()
 line = c._runner_line(["--model", "lm", "--mode", "infer", "--steps", "5"])
 print(json.dumps({"phase": "lm_infer", **line}))
+for _ in range(3):
+    line = c._runner_line(["--model", "lstm", "--steps", "500"])
+    print(json.dumps({"phase": "lstm_case_5_1", **line}))
 """
 
 

@@ -711,12 +711,14 @@ def _family(name: str) -> str:
     return "elementwise and other"
 
 
-def _profile(fn, iters: int, top: int = 8) -> dict:
+def _profile(fn, iters: int, top: int = 8, ranges: tuple = ()) -> dict:
     """Where ``fn``'s time goes: wall ms per call (host clock around
     ``iters`` calls ending in a synchronize, profiler off), device ms per
     call, by kernel family (:data:`FAMILIES`) and for the ``top`` kernels,
     under torch.profiler (CUPTI), and the device's idle share,
-    1 - device / wall (one stream: no overlap)."""
+    1 - device / wall (one stream: no overlap). ``ranges`` names
+    ``record_function`` ranges whose device time per call is summed from
+    the same trace (the kernels launched inside them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
@@ -729,24 +731,29 @@ def _profile(fn, iters: int, top: int = 8) -> dict:
     # one warm-up step first: events at the very start of a profiled
     # window went missing (3 of a forward's 4 flash launches counted).
     # The cycle's events are read as it ends, before the profiler clears
-    # them. A cycle that came back empty (seen once, after many profiled
-    # windows in one process) is profiled again, up to 3 times.
+    # them. A cycle that came back without a kernel (seen after many
+    # profiled windows in one process) is profiled again, up to 3 times.
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if ranges else [])
+
+    def is_kernel(e):
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation and e.key not in ranges)
     events = []
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CUDA],
+        events.clear()
+        with profile(activities=activities,
                      schedule=schedule(wait=0, warmup=1, active=iters),
                      on_trace_ready=lambda p: events.extend(
-                         e for e in p.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
-                     ) as prof:
+                         p.key_averages())) as prof:
             for _ in range(iters + 1):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        if events:
+        if any(is_kernel(e) for e in events):
             break
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
-                       e.count // iters) for e in events),
+                       e.count // iters) for e in events if is_kernel(e)),
                      key=lambda k: -k[1])
     if not kernels:
         raise AssertionError("the profiler recorded no kernel")
@@ -754,7 +761,16 @@ def _profile(fn, iters: int, top: int = 8) -> dict:
     families = {}
     for name, ms, _ in kernels:
         families[_family(name)] = families.get(_family(name), 0.0) + ms
+    ranges_ms = {name: sum(e.device_time_total for e in events
+                           if e.key == name and e.device_type
+                           == torch.autograd.DeviceType.CPU) / 1e3 / iters
+                 for name in ranges}
+    for name, ms in ranges_ms.items():
+        if not 0 < ms <= device_ms:
+            raise AssertionError(f"range {name}: {ms} ms of the trace's "
+                                 f"{device_ms} ms")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            **({"ranges_ms": ranges_ms} if ranges else {}),
             "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
             "profile_attempts": attempt,
             "kernels_per_call": sum(n for _, _, n in kernels),
@@ -797,7 +813,9 @@ def phase_lm_train_profile(attention: dict) -> None:
     """One LM train step at the runner's shapes and weights (batch
     4 x 2049 tokens, bf16, plain SGD) under the profiler, 2 timed; the
     share of its device time that the flash backward's recompute takes,
-    from ``attention`` (``phase_flash_grad``'s times of one layer)."""
+    read from the same trace (the kernels under the ``flash_absorb.backward``
+    range), beside the estimate from ``attention`` (``phase_flash_grad``'s
+    times of one layer, times the layers)."""
     import torch
     from k8s_device_plugin_torch.workloads import harness, run
     from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
@@ -816,11 +834,13 @@ def phase_lm_train_profile(attention: dict) -> None:
         optimizer.zero_grad(set_to_none=True)
         lm_loss(model, tokens, use_flash=True).backward()
         optimizer.step()
-    prof = _profile(step, 2, top=12)
-    recompute_ms = layers * (attention["fwd_bwd_ms"] - attention["fwd_ms"])
+    prof = _profile(step, 2, top=12, ranges=("flash_absorb.backward",))
+    recompute_ms = prof["ranges_ms"]["flash_absorb.backward"]
+    one_layer_ms = layers * (attention["fwd_bwd_ms"] - attention["fwd_ms"])
     emit("lm_train_profile", tokens_per_step=batch * seq,
          attention_backward_ms=recompute_ms,
-         attention_backward_share=recompute_ms / prof["device_ms"], **prof)
+         attention_backward_share=recompute_ms / prof["device_ms"],
+         attention_backward_from_one_layer_ms=one_layer_ms, **prof)
 
 
 def phase_model_train_profiles() -> None:
@@ -930,17 +950,17 @@ def _lm_correctness() -> dict:
 def _train_step_on(device, model, step, *batch) -> tuple:
     """``model`` (on the CPU) copied to ``device``, one ``step(model,
     *batch)`` there: (loss, state_dict before, state_dict after,
-    gradients), on the CPU in fp32."""
+    gradients), on the CPU in fp64."""
     import copy
 
     import torch
     model = copy.deepcopy(model).to(device)
-    before = {k: v.detach().float().cpu().clone() for k, v in
+    before = {k: v.detach().double().cpu().clone() for k, v in
               model.state_dict().items()}
     loss = step(model, *(t.to(device) for t in batch))
-    after = {k: v.detach().float().cpu() for k, v in
+    after = {k: v.detach().double().cpu() for k, v in
              model.state_dict().items()}
-    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    grads = {n: p.grad.double().cpu() for n, p in model.named_parameters()}
     return loss.item(), before, after, grads
 
 
@@ -969,6 +989,43 @@ def _check_update(what, model, got, want, tol: float) -> dict:
     return worst
 
 
+def _resnet_loss_close(got: float, want: float, tol: float) -> float:
+    if not abs(got - want) <= tol * (1 + abs(want)):
+        raise AssertionError(f"resnet50 loss {got} != {want}")
+    return abs(got - want)
+
+
+def _check_resnet_update(net, got, want, dtype, tol: float,
+                         stats_tol: float) -> dict:
+    """ResNet-50's update on the card (``got``) against the CPU's: in fp64
+    each parameter's within ``tol`` of its L2 norm, in fp32 all of them
+    together (one flipped ReLU mask moves a channel); each BatchNorm
+    running statistic within ``stats_tol`` of its largest magnitude."""
+    import torch
+    names = [n for n, _ in net.named_parameters()]
+    moves = [(got[2][n] - got[1][n], want[2][n] - want[1][n]) for n in names]
+    if dtype == torch.float32:
+        moves = [tuple(torch.cat([m[i].flatten() for m in moves])
+                       for i in range(2))]
+    l2 = 0.0
+    for (d_got, d_want), name in zip(moves, names):
+        err = ((d_got - d_want).norm() / d_want.norm()).item()
+        if not err <= tol:
+            raise AssertionError(f"resnet50 {dtype} update of "
+                                 f"{name if len(moves) > 1 else 'all'}: "
+                                 f"relative L2 {err}")
+        l2 = max(l2, err)
+    stats = 0.0
+    for n in want[2]:
+        if n.endswith(("running_mean", "running_var")):
+            w = want[2][n]
+            err = ((got[2][n] - w).abs().max() / w.abs().max()).item()
+            if not err <= stats_tol:
+                raise AssertionError(f"resnet50 {dtype} {n}: {err}")
+            stats = max(stats, err)
+    return {"update_rel_l2": l2, "bn_stats_err": stats}
+
+
 def phase_train_correctness() -> None:
     """One train step on the card against the same step on the CPU from
     the same weights, fp32 with TF32 off, at the bounds of
@@ -976,13 +1033,17 @@ def phase_train_correctness() -> None:
     tokens through the flash absorb (K3 on the card, 32-token chunks, 3
     absorbs a layer) and plain SGD, the loss at 1e-5 and each update within
     1e-4 of its largest magnitude (each gradient too); the LSTM (batch
-    4 x 8 steps, K2) with
-    SGD-momentum, the same bounds; ResNet-50 (batch 2 @ 64) with
-    SGD-momentum, the loss at 1e-5, each BatchNorm running statistic within
-    1e-3 of its largest magnitude, the whole update within 0.25 in
-    relative L2 norm (a ReLU mask flipped by rounding moves a channel's
-    whole gradient at batch 2: the CPU's own fp32 and fp64 updates differ
-    by up to 8%, as tests/test_torch_train_models.py records)."""
+    4 x 8 steps, K2) with SGD-momentum, the same bounds; ResNet-50 with
+    SGD-momentum at batch 2 @ 64, first in fp32, where a ReLU mask
+    flipped by rounding moves a channel's whole gradient: the loss at
+    1e-5, the whole update within 5e-2 in relative L2 (1.2e-3 to 1.6e-2
+    read on an H100, as cuDNN's choice of algorithms varies from run to
+    run), each BatchNorm running statistic within 2e-4 of its largest
+    magnitude (2.6e-5 to 4.2e-5 read); then in fp64 (its fp32
+    head aside) on another batch of that size, at the bounds of
+    tests/test_torch_train_models.py: the loss at 1e-6, each parameter's
+    update within 1e-4 of its L2 norm, each running statistic within
+    1e-6."""
     import numpy as np
     import torch
     from k8s_device_plugin_torch.workloads import flash, harness, run
@@ -1040,31 +1101,19 @@ def phase_train_correctness() -> None:
                           "loss_err": loss_close("lstm", got[0], want[0]),
                           **_check_update("lstm", lstm, got, want, 1e-4)}
 
-        net = harness.init_model(resnet50(dtype=torch.float32), 0, "cpu")
-        x = torch.from_numpy(rng.standard_normal(
-            (2, 64, 64, 3)).astype(np.float32))
-        labels = torch.from_numpy(rng.integers(0, 1000, (2,)))
-        want = _train_step_on("cpu", net, step, x, labels)
-        got = _train_step_on("cuda", net, step, x, labels)
-        names = [n for n, _ in net.named_parameters()]
-        d_got = torch.cat([(got[2][n] - got[1][n]).flatten() for n in names])
-        d_want = torch.cat([(want[2][n] - want[1][n]).flatten()
-                            for n in names])
-        l2 = ((d_got - d_want).norm() / d_want.norm()).item()
-        if not l2 <= 0.25:
-            raise AssertionError(f"resnet50 update: relative L2 {l2}")
-        stats = 0.0
-        for n in want[2]:
-            if n.endswith(("running_mean", "running_var")):
-                w = want[2][n]
-                err = (got[2][n] - w).abs().max().item() / w.abs().max()
-                if not err <= 1e-3:
-                    raise AssertionError(f"resnet50 {n}: {err}")
-                stats = max(stats, float(err))
-        report["resnet50"] = {"loss": got[0],
-                              "loss_err": loss_close("resnet50", got[0],
-                                                     want[0]),
-                              "update_rel_l2": l2, "bn_stats_err": stats}
+        for dtype, tol in ((torch.float32, (1e-5, 5e-2, 2e-4)),
+                           (torch.float64, (1e-6, 1e-4, 1e-6))):
+            net = harness.init_model(resnet50(dtype=dtype), 0, "cpu")
+            net.to(dtype).head.float()  # the head stays fp32
+            x = torch.from_numpy(rng.standard_normal(
+                (2, 64, 64, 3)).astype(np.float32)).to(dtype)
+            labels = torch.from_numpy(rng.integers(0, 1000, (2,)))
+            want = _train_step_on("cpu", net, step, x, labels)
+            got = _train_step_on("cuda", net, step, x, labels)
+            report[f"resnet50_{str(dtype).split('.')[1]}"] = {
+                "loss": got[0],
+                "loss_err": _resnet_loss_close(got[0], want[0], tol[0]),
+                **_check_resnet_update(net, got, want, dtype, *tol[1:])}
     emit("train_correctness", **report)
 
 

@@ -26,8 +26,13 @@ the plain absorb on a CPU one; its backward, on both, recomputes one
 absorb through :func:`absorb_block_reference` and differentiates that, as
 the JAX backward differentiates ``absorb_block_jnp`` (there is no backward
 kernel in either package). The stabilizers are detached, so ``m`` carries
-no gradient. :func:`_absorb_kernel`, the measurement entry that forces a
-route, still raises when autograd would need a gradient.
+no gradient. The backward runs under the profiler range
+``flash_absorb.backward``, so a trace attributes its device time. Where
+autograd records nothing (``inference_mode``, ``no_grad``) the forward
+runs without the Function: an ``apply`` costs host time on every call,
+which a host-bound serving path pays (``PERF.md`` §6 measures it on the
+LSTM's cell). :func:`_absorb_kernel`, the measurement entry that forces
+a route, still raises when autograd would need a gradient.
 """
 
 from __future__ import annotations
@@ -189,7 +194,8 @@ class _Absorb(torch.autograd.Function):
     def backward(ctx, dm, dl, do):
         saved = ctx.saved_tensors
         needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "flash_absorb.backward"):
             inputs = [t.detach().requires_grad_(need)
                       for t, need in zip(saved, needs)]
             q, k, v, m, l, o = inputs
@@ -208,8 +214,7 @@ def flash_absorb(q, k, v, kind, m, l, o):
     new state in new tensors (the inputs are not written). Finalize with
     :func:`flash_finalize` once every block has been absorbed.
     Differentiable in q, k, v, l and o (see the module docstring); when
-    autograd records nothing (serving, ``inference_mode``) the forward
-    runs without the Function's bookkeeping."""
+    autograd records nothing the forward runs without the Function."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, m, l, o)):
         return _Absorb.apply(q, k, v, int(kind), m, l, o)

@@ -14,7 +14,10 @@ wh [H, 4H], b [4H], gates in [i|f|g|o] order.
 Gradients: where autograd records, :func:`lstm_cell` runs as a
 ``torch.autograd.Function`` whose backward recomputes
 :func:`lstm_cell_reference` from the saved inputs and differentiates it,
-on both devices. The JAX package has no backward kernel either: at the
+on both devices. Where it records nothing (the runner's infer path) the
+forward runs without the Function: on an H100's host, going through it
+on each of case 5.1's 64 steps cost 19-37% of the items/s
+(``PERF.md`` §6). The JAX package has no backward kernel either: at the
 case-5 shapes its ``lstm_cell`` takes the jnp path, which JAX
 differentiates.
 """
@@ -80,9 +83,7 @@ class _Cell(torch.autograd.Function):
 
 def lstm_cell(x, h, c, wx, wh, b):
     """One fused LSTM step; returns (h', c'). Differentiable in every
-    input (see the module docstring); when autograd records nothing
-    (``inference_mode``, as the runner's infer path) the forward runs
-    without the Function's bookkeeping, a host cost on every time step."""
+    input (see the module docstring)."""
     args = (x, h, c, wx, wh, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _Cell.apply(*args)

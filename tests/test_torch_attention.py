@@ -17,6 +17,7 @@ import torch
 from k8s_device_plugin_torch.workloads import attention as tatt
 from k8s_device_plugin_torch.workloads import convert
 from k8s_device_plugin_tpu.workloads import attention as jatt
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB, DIM, HEADS, LAYERS = 32, 16, 4, 2
 TOL = 1e-4  # tests/test_attention.py's LM tolerance

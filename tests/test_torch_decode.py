@@ -18,6 +18,7 @@ from k8s_device_plugin_torch.workloads import convert
 from k8s_device_plugin_torch.workloads import decode as tdec
 from k8s_device_plugin_tpu.workloads import attention as jatt
 from k8s_device_plugin_tpu.workloads import decode as jdec
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB, DIM, HEADS, LAYERS = 32, 16, 4, 2
 

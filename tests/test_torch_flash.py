@@ -16,6 +16,7 @@ import torch
 from k8s_device_plugin_torch.workloads import flash as tflash
 from k8s_device_plugin_tpu.workloads import flash as jflash
 from k8s_device_plugin_tpu.workloads.attention import reference_attention
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5  # tests/test_attention.py's flash tolerance
 

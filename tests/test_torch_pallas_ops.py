@@ -21,6 +21,7 @@ from k8s_device_plugin_torch.workloads.pallas_ops import (
 from k8s_device_plugin_tpu.workloads.lstm import LSTMClassifier
 from k8s_device_plugin_tpu.workloads.pallas_ops import (lstm_cell,
                                                         lstm_cell_reference)
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 # tolerances of tests/test_pallas_ops.py
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -1,8 +1,9 @@
 """ResNet-V2-50 parity: the PyTorch port against the Flax reference on CPU.
 
-The same seeded numpy weights (the Flax model's own init, transferred by
-``convert.flax_to_state_dict``) and the same seeded numpy batch go through
-both models in eval mode at batch 2 @ 32x32.
+The same seeded numpy weights (drawn into the Flax model's tree by
+``torch_support.seeded_variables``, with non-trivial BatchNorm statistics,
+transferred by ``convert.flax_to_state_dict``) and the same seeded numpy
+batch go through both models in eval mode at batch 2 @ 32x32.
 """
 
 import jax
@@ -14,6 +15,7 @@ import torch
 from k8s_device_plugin_torch.workloads import convert, harness
 from k8s_device_plugin_torch.workloads import resnet as tresnet
 from k8s_device_plugin_tpu.workloads.resnet import ResNetV2
+from torch_support import one_torch_thread, seeded_variables  # noqa: F401
 
 # fp32: both sides sum convolutions in other orders over 50 layers; the
 # gap is ~1e-6 relative, so 1e-4 of the largest logit leaves margin.
@@ -21,10 +23,6 @@ from k8s_device_plugin_tpu.workloads.resnet import ResNetV2
 # places (XLA fuses, PyTorch does not), so errors of ~2^-8 per layer
 # compound; the bound is 5e-2 of the largest logit.
 TOLERANCE = {"float32": 1e-4, "bfloat16": 5e-2}
-
-
-def _numpy_tree(tree):
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
 
 
 @pytest.fixture(autouse=True)
@@ -44,16 +42,7 @@ def test_resnet50_logits_match_flax(dtype):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
     ref = ResNetV2(depth=50, num_classes=16, dtype=getattr(jnp, dtype))
-    variables = ref.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
-    # non-trivial BatchNorm statistics, so the transfer of mean/var counts
-    def stat(path, a):
-        if path[-1].key == "mean":
-            return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
-        return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
-
-    stats = jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])
-    variables = {"params": _numpy_tree(variables["params"]),
-                 "batch_stats": stats}
+    variables = seeded_variables(ref, jnp.asarray(x), seed=0, train=False)
     want = np.asarray(ref.apply(variables, jnp.asarray(x), train=False),
                       np.float32)
 

@@ -14,17 +14,37 @@ from k8s_device_plugin_torch import bench as tbench
 from k8s_device_plugin_torch.entry import entry
 from k8s_device_plugin_torch.workloads import run as trun
 from k8s_device_plugin_tpu.workloads import run as jrun
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
+def _small_jax_models(monkeypatch):
+    """The JAX runner only gives the keys to compare, and they depend on
+    neither depth nor width: its ResNet-50 keeps one bottleneck and its
+    LSTM 16 hidden units (at full size their steps cost the CPU tens of
+    seconds)."""
+    from k8s_device_plugin_tpu.workloads import resnet as jresnet
+    from k8s_device_plugin_tpu.workloads.lstm import LSTMClassifier
+    build = jrun.build_model
+
+    def small(name, dtype, on_tpu=False):
+        if name == "lstm":
+            return LSTMClassifier(hidden=16, dtype=dtype, use_pallas=on_tpu)
+        return build(name, dtype, on_tpu=on_tpu)
+    monkeypatch.setitem(jresnet.DEPTHS, 50, (1, 0, 0, 0))
+    monkeypatch.setattr(jrun, "build_model", small)
+
+
 def test_runner_prints_the_jax_runners_keys(monkeypatch, capsys):
     monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", "lstm", "--batch", "2", "--size", "8", "--steps", "1"]
-    assert jrun.main(tiny) == 0
+    with monkeypatch.context() as patch:
+        _small_jax_models(patch)
+        assert jrun.main(tiny) == 0
     want = _last_json(capsys)
     before = _lstm_launches()
     assert trun.main(tiny + ["--device", "cpu"]) == 0
@@ -86,13 +106,16 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
 @pytest.mark.parametrize("model", ["lm", "resnet50", "lstm"])
 def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
                                                  capsys):
-    """--mode train at tiny sizes: the JAX runner's keys, the train batch
-    when --batch is not given, and no kernel launched on the CPU."""
+    """--mode train at tiny sizes: the JAX runner's keys (from its small
+    models), the train batch when --batch is not given (the LM's 4), and
+    no kernel launched on the CPU."""
     monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", model, "--mode", "train", "--size", "16", "--steps",
-            "1"] + (["--batch", "2"] if model != "lstm" else [])
-    assert jrun.main(tiny) == 0
+            "1"] + (["--batch", "2"] if model != "lm" else [])
+    with monkeypatch.context() as patch:
+        _small_jax_models(patch)
+        assert jrun.main(tiny) == 0
     want = _last_json(capsys)
     from k8s_device_plugin_torch.workloads.flash import flash_absorb
     before = (flash_absorb.launches, _lstm_launches())
@@ -101,7 +124,7 @@ def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
     assert sorted(got) == sorted(want)
     assert (got["model"], got["mode"]) == (model, "train")
     assert got["batch"] == want["batch"] == (
-        2 if model != "lstm" else trun.CASES["lstm"][1])
+        trun.CASES["lm"][1] if model == "lm" else 2)
     assert got["items_per_s"] > 0
     if model == "lm":
         assert (got["seq"], got["sp"]) == (16, 1) and got["tokens_per_s"] > 0
@@ -140,7 +163,9 @@ def test_entry_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
     assert torch.isfinite(out).all()
 
 
-def test_bench_assembles_the_share_result(tmp_path):
+def test_bench_assembles_the_share_result(tmp_path, monkeypatch):
+    # the bench's child processes inherit the environment: one thread each
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     args = tbench.parse_args(["--device", "cpu", "--batch", "1",
                               "--image-size", "32", "--iters", "3",
                               "--share-procs", "2", "--share", "2"])

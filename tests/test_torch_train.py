@@ -22,6 +22,7 @@ from k8s_device_plugin_torch.workloads import harness as th
 from k8s_device_plugin_tpu.workloads import attention as jatt
 from k8s_device_plugin_tpu.workloads import flash as jflash
 from k8s_device_plugin_tpu.workloads import harness as jh
+from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 #: tests/test_attention.py's gradient tolerance (atol, rtol)
 GRAD_TOL = (1e-5, 1e-4)

@@ -9,6 +9,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. card: the card's name and power limit, as nvidia-smi reports them;
 2. build: every kernel under ``k8s_device_plugin_torch/csrc`` with nvcc;
+   then the compile cache: the runner twice in fresh processes with
+   ``VTPU_COMPILE_CACHE_DIR`` set, cold (builds K2 into the cache) and
+   warm (builds nothing), and the key in the manifest;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (and, for the flash absorb, every mask
    kind on a carried state, an odd T and a head dim of 16, each check
@@ -16,10 +19,11 @@ Phases, one JSON line each; any failure exits non-zero:
    a library call's (where one exists) and the card's bound; for the
    flash absorb also its mma.sync route and its rounded-P variant;
 4. gradients: the flash absorb's ``autograd.Function`` (K3 forward,
-   recompute backward) against dense attention's gradients, in fp32 and
-   at the LM's train chunking in bf16, with its forward and forward +
-   backward times beside dense attention's and SDPA's; the LSTM's
-   gradients through K2 against the plain cell's at case 5.2;
+   recompute backward) against dense attention's gradients, in fp32, and
+   in bf16 at the LM's train chunking and at the MoE LM's whole-sequence
+   absorbs, with forward and forward + backward times beside dense
+   attention's and SDPA's; the LSTM's gradients through K2 against the
+   plain cell's at case 5.2;
 5-12. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
    (batch 50 @ 346) natively and as a 4-way share under the cooperative
@@ -30,14 +34,22 @@ Phases, one JSON line each; any failure exits non-zero:
    ``--mode decode`` (prompt 2048, 32 tokens a call); then ``--mode
    train``: the LM (batch 4 x 2048, 12 flash absorbs a step), ResNet-50
    at case 1.2 (batch 20 @ 346), ResNet-152 at case 2.2 (batch 10 @ 256)
-   and the LSTM at case 5.2 (batch 10, 64 cell launches a step);
-13. the LM's forward, decode step and train step, and a train step of
-   ResNet-50 (case 1.2) and of the LSTM (case 5.2), under torch.profiler:
-   device time by kernel and the device's idle share;
+   and the LSTM at case 5.2 (batch 10, 64 cell launches a step); then the
+   Switch-MoE LM (8 experts, 1024-token routing blocks) in ``--mode
+   infer`` (8 x 2048: one whole-sequence K3 absorb a layer), ``train`` (4
+   x 2048, the same) and ``decode`` (no port kernel), and VGG-16 (cases
+   3.1, 3.2) and DeepLab-v3 (case 4.1, and batch 1 @ 512 to train) in
+   ``--mode infer`` and ``train`` (no port kernel: cuDNN convolutions);
+13. the LM's forward, decode step and train step, a train step of
+   ResNet-50 (case 1.2) and of the LSTM (case 5.2), and the MoE LM's
+   forward and train step, under torch.profiler: device time by kernel
+   family and the device's idle share;
 14. correctness: the models on the card against the same weights on the
-   CPU at small inputs, greedy decoding on the card token for token
-   against its from-scratch recompute, and one train step of the LM, the
-   ResNet and the LSTM on the card against the same step on the CPU;
+   CPU at small inputs (the MoE LM with its count of routing decisions
+   that differ), greedy decoding of the LM and the MoE LM on the card
+   token for token against their from-scratch recompute, and one train
+   step of the LM, the ResNet, the LSTM, the MoE LM, VGG-16 and DeepLab-v3
+   on the card against the same step on the CPU;
 then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 
 Needs no network; builds into ``build/kernels`` (git-ignored).
@@ -64,7 +76,11 @@ FP32_FLOPS = 67e12
 #: ai-benchmark case 5.1: batch 100, 300 features, 1024 hidden
 LSTM_CASE = (100, 300, 1024)
 #: steps of each train path through the runner (after its 2 warm-up calls)
-TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5}
+TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5,
+               "moe-lm": 3, "vgg16": 5, "deeplab": 3}
+#: calls per timed round of the MoE LM and the segmentation and VGG paths'
+#: inference (after 2 warm-up calls)
+INFER_STEPS = {"moe-lm": 5, "vgg16": 10, "deeplab": 5}
 
 
 def emit(phase: str, **fields) -> None:
@@ -165,6 +181,63 @@ def phase_build() -> None:
                     or "warning" in ln.lower()]
              for name, log in reports.items()}
     emit("build", seconds=seconds, kernels=sorted(reports), ptxas=usage)
+
+
+def _libraries(cache_dir: str) -> dict:
+    """{library file: (inode, mtime)} under the cache's kernel dir."""
+    kernels = os.path.join(cache_dir, "kernels")
+    if not os.path.isdir(kernels):
+        return {}
+    return {f: (os.stat(os.path.join(kernels, f)).st_ino,
+                os.stat(os.path.join(kernels, f)).st_mtime_ns)
+            for f in os.listdir(kernels) if f.endswith(".so")}
+
+
+def phase_compile_cache() -> None:
+    """The compile-cache contract on the card: the runner twice, each in a
+    fresh process (``--model lstm --steps 2``), with
+    ``VTPU_COMPILE_CACHE_DIR`` at a fresh directory and
+    ``VTPU_COMPILE_CACHE_KEY`` set. The first (cold) must build K2 into
+    the cache, the second (warm) must build nothing and report a smaller
+    ``compile_s``; the manifest must hold the key afterwards."""
+    from k8s_device_plugin_torch.api import COMPILE_CACHE_MANIFEST
+    key = "chip-smoke-lstm"
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cache-") as cache:
+        env = dict(os.environ, VTPU_COMPILE_CACHE_DIR=cache,
+                   VTPU_COMPILE_CACHE_KEY=key)
+        for label in ("cold", "warm"):
+            before = _libraries(cache)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "k8s_device_plugin_torch.workloads.run",
+                 "--model", "lstm", "--steps", "2"], cwd=HERE, env=env,
+                capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{label} runner rc={proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            after = _libraries(cache)
+            runs.append({"run": label, "compile_s": line["compile_s"],
+                         "warmup_step_s": line["warmup_step_s"],
+                         "items_per_s": line["items_per_s"],
+                         "seconds": seconds,
+                         "built": sorted(f for f in after
+                                         if after[f] != before.get(f))})
+        with open(os.path.join(cache, COMPILE_CACHE_MANIFEST)) as f:
+            keys = sorted(json.load(f)["keys"])
+    cold, warm = runs
+    emit("compile_cache", runs=runs, manifest_keys=keys)
+    if not any(f.startswith("liblstm_cell-") for f in cold["built"]):
+        raise AssertionError(f"the cold run built {cold['built']}, not K2")
+    if warm["built"]:
+        raise AssertionError(f"the warm run built {warm['built']}")
+    if keys != [key]:
+        raise AssertionError(f"manifest keys {keys}")
+    if not warm["compile_s"] < cold["compile_s"]:
+        raise AssertionError(f"warm compile_s {warm['compile_s']} >= cold "
+                             f"{cold['compile_s']}")
 
 
 def phase_probe_kernel() -> dict:
@@ -440,12 +513,15 @@ def phase_flash_grad() -> dict:
     sum(sin(flash_attention)) in q, k, v against dense attention's: fp32
     with TF32 off at 2 x 256, 4 heads of 64, whole-sequence and in 64-token
     chunks, causal and not (atol 1e-5, rtol 1e-4, as
-    tests/test_attention.py); bf16 at the LM's train chunking (4 x 2048,
-    8 heads of 64, seq_block 1024, causal) within 2e-2 of the largest
-    |grad|. Then device times of one layer's attention at that shape:
-    the forward alone (3 K3 launches and the finalize), forward +
-    backward through the Function, the same through dense attention, and
-    SDPA's forward + backward (a yardstick the port never calls)."""
+    tests/test_attention.py); bf16 at 4 x 2048, 8 heads of 64, causal,
+    at the LM's train chunking (seq_block 1024: 3 K3 launches) and at the
+    MoE LM's whole-sequence absorb (seq_block None: 1 launch, its backward
+    rebuilding one [4, 8, 2048, 2048] fp32 score block), each within 2e-2
+    of the largest |grad|. Device times of one layer's attention at that
+    shape, for each: the forward alone (K3 and the finalize) and forward +
+    backward through the Function; then the same through dense attention,
+    and SDPA's forward and forward + backward (a yardstick the port never
+    calls)."""
     import torch
     import torch.nn.functional as F
     from k8s_device_plugin_torch.workloads import flash, run
@@ -475,28 +551,44 @@ def phase_flash_grad() -> dict:
     dim, block = width // heads, 1024
     q, k, v = _flash_args(batch, seq, seq, heads, dim, torch.bfloat16, 22,
                           True)[:3]
-    launches = flash.flash_absorb.launches
-    got = _grads(lambda *a: flash.flash_attention(*a, seq_block=block),
-                 (q, k, v))
-    launches = flash.flash_absorb.launches - launches
     want = _grads(reference_attention, (q, k, v))
-    bf16 = {}
-    for name, g, w in zip("qkv", got, want):
-        scale = w.float().abs().max().item()
-        bf16[name] = max_abs_err(g, w) / scale
-        if not bf16[name] <= 2e-2:
-            raise AssertionError(f"flash grad bf16 d{name}: "
-                                 f"{bf16[name]} of the largest |grad|")
-    del got, want
-
     cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
                       ).to("cuda", torch.bfloat16)
-    with torch.no_grad():
-        fwd_ms, timing = device_ms(
-            lambda: flash.flash_attention(q, k, v, seq_block=block), 10)
-    fwd_bwd_ms, _ = device_ms(lambda: _grads(
-        lambda *a: flash.flash_attention(*a, seq_block=block), (q, k, v),
-        cot), 5)
+    # the LM's train chunking, then the MoE LM's whole-sequence absorbs
+    # (moe_lm_loss passes no chunking: one [4, 8, 2048, 2048] fp32 score
+    # block rebuilt per backward)
+    by_block = {}
+    for sb, absorbs in ((block, 3), (None, 1)):
+        launches = flash.flash_absorb.launches
+        got = _grads(lambda *a, sb=sb: flash.flash_attention(
+            *a, seq_block=sb), (q, k, v))
+        launches = flash.flash_absorb.launches - launches
+        errs = {}
+        for name, g, w in zip("qkv", got, want):
+            scale = w.float().abs().max().item()
+            errs[name] = max_abs_err(g, w) / scale
+            if not errs[name] <= 2e-2:
+                raise AssertionError(f"flash grad bf16 seq_block={sb} "
+                                     f"d{name}: {errs[name]} of the largest "
+                                     f"|grad|")
+        del got
+        if launches != absorbs:
+            raise AssertionError(f"{launches} K3 launches for one layer's "
+                                 f"attention at seq_block={sb}, not "
+                                 f"{absorbs}")
+        with torch.no_grad():
+            fwd_ms, timing = device_ms(
+                lambda sb=sb: flash.flash_attention(q, k, v, seq_block=sb),
+                10)
+        fwd_bwd_ms, _ = device_ms(lambda sb=sb: _grads(
+            lambda *a: flash.flash_attention(*a, seq_block=sb), (q, k, v),
+            cot), 5)
+        by_block[sb] = {"err_of_largest": errs, "k3_launches": launches,
+                        "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+                        "backward_share": (fwd_bwd_ms - fwd_ms) / fwd_bwd_ms,
+                        "timing": timing}
+    del want
+
     dense_fwd_bwd_ms, _ = device_ms(
         lambda: _grads(reference_attention, (q, k, v), cot), 5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -507,19 +599,18 @@ def phase_flash_grad() -> dict:
     with torch.no_grad():
         sdpa_fwd_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 10)
-    times = {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
-             "backward_share": (fwd_bwd_ms - fwd_ms) / fwd_bwd_ms,
+    chunked = by_block[block]
+    times = {"fwd_ms": chunked["fwd_ms"], "fwd_bwd_ms": chunked["fwd_bwd_ms"],
+             "backward_share": chunked["backward_share"],
              "dense_fwd_bwd_ms": dense_fwd_bwd_ms,
              "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
-             "timing": timing}
+             "timing": chunked["timing"]}
     emit("flash_grad", fp32_max_abs_err=fp32, bf16_shape=[batch, seq, heads,
                                                           dim],
-         seq_block=block, bf16_err_of_largest=bf16,
-         k3_launches_per_fwd_bwd=launches, **times)
-    if launches != 3:
-        raise AssertionError(f"{launches} K3 launches for one layer's "
-                             f"attention at the train chunking, not 3")
-    return times
+         seq_block=block, bf16_err_of_largest=chunked["err_of_largest"],
+         k3_launches_per_fwd_bwd=chunked["k3_launches"],
+         whole_sequence=by_block[None], **times)
+    return {**times, "whole_sequence": by_block[None]}
 
 
 def phase_lstm_grad() -> dict:
@@ -671,23 +762,54 @@ def phase_main_path() -> dict:
         emit(case, **line, steps=TRAIN_STEPS[model],
              seconds=time.perf_counter() - t0)
 
+    # the Switch-MoE LM (infer, train, decode), then VGG-16 and DeepLab-v3
+    # (infer, train): cases 3.x and 4.x
+    for model, mode, steps in (
+            ("moe-lm", "infer", INFER_STEPS["moe-lm"]),
+            ("moe-lm", "train", TRAIN_STEPS["moe-lm"]),
+            ("moe-lm", "decode", 2),
+            ("vgg16", "infer", INFER_STEPS["vgg16"]),
+            ("vgg16", "train", TRAIN_STEPS["vgg16"]),
+            ("deeplab", "infer", INFER_STEPS["deeplab"]),
+            ("deeplab", "train", TRAIN_STEPS["deeplab"])):
+        case = f"{model.replace('-', '_')}_{mode}"
+        t0 = time.perf_counter()
+        line = counted(case, lambda model=model, mode=mode, steps=steps:
+                       _runner_line(["--model", model, "--mode", mode,
+                                     "--steps", str(steps)]))
+        rate = line["gen_tokens_per_s" if mode == "decode" else
+                    "items_per_s"]
+        if not rate > 0:
+            raise AssertionError(f"{model} {mode} runner: {line}")
+        emit(case, **line, steps=steps, seconds=time.perf_counter() - t0)
+
     launches = {name: sum(p[name] for p in by_path.values())
                 for name in counters}
     emit("main_path_launches", **launches, by_path=by_path)
     # each kernel must have run on the path that carries it
     own = {"probe_chain": ["resnet50_share"],
            "lstm_cell": ["lstm_case_5_1", "lstm_train"],
-           "flash_absorb": ["lm_infer", "lm_train"]}
+           "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
+                            "moe_lm_train"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if by_path[path][name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their path: "
                              f"{missing}")
-    # a train call: 12 absorbs (3 per layer at 1024-token chunks), one
-    # cell a time step; the runner makes 2 warm-up calls before its steps
-    per_call = {("lm", "flash_absorb"): 12, ("lstm", "lstm_cell"): 64}
-    for (model, name), n in per_call.items():
-        path, calls = f"{model}_train", TRAIN_STEPS[model] + 2
+    # launches a call: the LM trains on 12 absorbs (3 per layer at
+    # 1024-token chunks), the MoE LM on one whole-sequence absorb a layer
+    # to infer and to train; the LSTM one cell a time step; the runner
+    # makes 2 warm-up calls before its steps. Decode, VGG and DeepLab run
+    # no port kernel (cuDNN convolutions, as XLA owns them on the TPU).
+    per_call = {("lm_train", "flash_absorb"): (12, TRAIN_STEPS["lm"]),
+                ("lstm_train", "lstm_cell"): (64, TRAIN_STEPS["lstm"]),
+                ("moe_lm_infer", "flash_absorb"): (4, INFER_STEPS["moe-lm"]),
+                ("moe_lm_train", "flash_absorb"): (4, TRAIN_STEPS["moe-lm"])}
+    per_call.update({(path, name): (0, 0) for path in (
+        "moe_lm_decode", "vgg16_infer", "vgg16_train", "deeplab_infer",
+        "deeplab_train") for name in counters})
+    for (path, name), (n, steps) in per_call.items():
+        calls = steps + 2
         if by_path[path][name] != n * calls:
             raise AssertionError(f"{path}: {by_path[path][name]} {name} "
                                  f"launches in {calls} calls, not {n} each")
@@ -843,6 +965,52 @@ def phase_lm_train_profile(attention: dict) -> None:
          attention_backward_from_one_layer_ms=one_layer_ms, **prof)
 
 
+def phase_moe_profile() -> None:
+    """The MoE LM under the profiler at the runner's shapes and weights
+    (``LM_CONFIG``, 8 experts of hidden 2048, bf16, 1024-token routing
+    blocks): one forward at batch 8 x 2048 (3 timed), and one train step
+    at 4 x 2049 tokens with plain SGD (2 timed), both through K3 on
+    whole-sequence absorbs; for the step, the device time under the flash
+    backward's ``flash_absorb.backward`` range and its share."""
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, run
+    from k8s_device_plugin_torch.workloads.moe import (init_moe_lm_params,
+                                                       moe_lm_forward,
+                                                       moe_lm_loss)
+    heads, dim, vocab, layers = run.LM_CONFIG
+    batch, train_batch, seq = run.CASES["moe-lm"]
+    model = init_moe_lm_params(torch.Generator().manual_seed(0), vocab, dim,
+                               heads, layers, n_experts=run.MOE_EXPERTS,
+                               dtype=torch.bfloat16, device="cuda")
+
+    def tokens(b, length):
+        return torch.randint(0, vocab, (b, length),
+                             generator=torch.Generator().manual_seed(1)
+                             ).to("cuda")
+    infer_tokens = tokens(batch, seq)
+
+    def forward():
+        with torch.inference_mode():
+            return moe_lm_forward(model, infer_tokens, use_flash=True,
+                                  shard_shape=(batch, seq // run.MOE_GROUP))
+    emit("moe_lm_infer_profile", tokens_per_call=batch * seq,
+         **_profile(forward, 3, top=12))
+    train_tokens = tokens(train_batch, seq + 1)
+    optimizer = harness.sgd(model, momentum=0.0)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        moe_lm_loss(model, train_tokens, use_flash=True,
+                    shard_shape=(train_batch, seq // run.MOE_GROUP)
+                    ).backward()
+        optimizer.step()
+    prof = _profile(step, 2, top=12, ranges=("flash_absorb.backward",))
+    recompute_ms = prof["ranges_ms"]["flash_absorb.backward"]
+    emit("moe_lm_train_profile", tokens_per_step=train_batch * seq,
+         attention_backward_ms=recompute_ms,
+         attention_backward_share=recompute_ms / prof["device_ms"], **prof)
+
+
 def phase_model_train_profiles() -> None:
     """One train step of ResNet-50 at case 1.2 (batch 20 @ 346) and of the
     LSTM at case 5.2 (batch 10, 64 steps), built and stepped as the runner
@@ -902,6 +1070,7 @@ def phase_correctness() -> None:
             report[f"{name}_{str(dtype).split('.')[1]}_rel_err"] = err
         report[f"{name}_max_logit"] = scale
     report.update(_lm_correctness())
+    report.update(_moe_correctness())
     emit("correctness", **report)
 
 
@@ -947,6 +1116,72 @@ def _lm_correctness() -> dict:
     return report
 
 
+def _moe_correctness() -> dict:
+    """The MoE LM at LM_CONFIG's widths and depth, 8 experts, on 2 x 64
+    tokens in 2 x 2 routing blocks: on the card through K3 against the
+    same weights on the CPU through the plain absorb, in fp32 with TF32
+    off, the logits to 1e-4 of the largest and the aux loss to 1e-5, with
+    the count of routing decisions (token and layer) that differ between
+    the two: a flip moves a token's output by O(1), so the bound holds
+    only without one. Then greedy ``moe_generate`` on the card (fp32,
+    prompt 2 x 16, 8 tokens) token for token against its from-scratch
+    recompute at drop-free capacity through K3."""
+    import copy
+
+    import torch
+    from k8s_device_plugin_torch.workloads import decode, moe, run
+    heads, dim, vocab, layers = run.LM_CONFIG
+    ref = moe.init_moe_lm_params(torch.Generator().manual_seed(0), vocab,
+                                 dim, heads, layers,
+                                 n_experts=run.MOE_EXPERTS, device="cpu")
+    model = copy.deepcopy(ref).to("cuda")
+    tokens = torch.randint(0, vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    decisions = {"cpu": [], "cuda": []}
+    route = moe._route
+
+    def recording(x, gate_w, n_experts, capacity):
+        decisions[x.device.type].append(
+            torch.softmax((x @ gate_w).float(), -1).argmax(-1).cpu())
+        return route(x, gate_w, n_experts, capacity)
+    moe._route = recording
+    try:
+        with no_tf32(), torch.inference_mode():
+            want, aux_want = moe.moe_lm_forward(ref, tokens, use_flash=True,
+                                                shard_shape=(2, 2))
+            got, aux_got = moe.moe_lm_forward(model, tokens.to("cuda"),
+                                              use_flash=True,
+                                              shard_shape=(2, 2))
+    finally:
+        moe._route = route
+    flips = sum(int((a != b).sum()) for a, b in zip(decisions["cpu"],
+                                                    decisions["cuda"]))
+    n_decisions = sum(d.numel() for d in decisions["cpu"])
+    emit("moe_lm_routing", decisions=n_decisions, flips=flips)
+    scale = want.abs().max().item()
+    err = check_close("moe-lm fp32", got.cpu() / scale, want / scale, 1e-4)
+    aux_err = abs(aux_got.item() - aux_want.item())
+    if not aux_err <= 1e-5 * (1 + abs(aux_want.item())):
+        raise AssertionError(f"moe-lm aux {aux_got.item()} != "
+                             f"{aux_want.item()}")
+    report = {"moe_lm_max_logit": scale, "moe_lm_float32_rel_err": err,
+              "moe_lm_aux_err": aux_err, "moe_lm_routing_decisions":
+              n_decisions, "moe_lm_routing_flips": flips}
+    prompt = tokens[:, :16].to("cuda")
+    with no_tf32():
+        got = decode.moe_generate(model, prompt, steps=8)
+        want = decode.reference_generate(
+            model, prompt, steps=8,
+            forward=lambda p, t: moe.moe_lm_forward(
+                p, t, capacity_factor=float(run.MOE_EXPERTS),
+                use_flash=True)[0])
+    if not torch.equal(got, want):
+        raise AssertionError(f"moe greedy decode on the card: "
+                             f"{got.tolist()} != recompute {want.tolist()}")
+    report["moe_lm_greedy_tokens_exact"] = int(got.numel() - prompt.numel())
+    return report
+
+
 def _train_step_on(device, model, step, *batch) -> tuple:
     """``model`` (on the CPU) copied to ``device``, one ``step(model,
     *batch)`` there: (loss, state_dict before, state_dict after,
@@ -989,18 +1224,20 @@ def _check_update(what, model, got, want, tol: float) -> dict:
     return worst
 
 
-def _resnet_loss_close(got: float, want: float, tol: float) -> float:
+def _resnet_loss_close(got: float, want: float, tol: float,
+                       what: str = "resnet50") -> float:
     if not abs(got - want) <= tol * (1 + abs(want)):
-        raise AssertionError(f"resnet50 loss {got} != {want}")
+        raise AssertionError(f"{what} loss {got} != {want}")
     return abs(got - want)
 
 
 def _check_resnet_update(net, got, want, dtype, tol: float,
-                         stats_tol: float) -> dict:
-    """ResNet-50's update on the card (``got``) against the CPU's: in fp64
-    each parameter's within ``tol`` of its L2 norm, in fp32 all of them
-    together (one flipped ReLU mask moves a channel); each BatchNorm
-    running statistic within ``stats_tol`` of its largest magnitude."""
+                         stats_tol: float, what: str = "resnet50") -> dict:
+    """A BatchNorm network's update on the card (``got``) against the
+    CPU's: in fp64 each parameter's within ``tol`` of its L2 norm, in fp32
+    all of them together (one flipped ReLU mask moves a channel); each
+    BatchNorm running statistic within ``stats_tol`` of its largest
+    magnitude."""
     import torch
     names = [n for n, _ in net.named_parameters()]
     moves = [(got[2][n] - got[1][n], want[2][n] - want[1][n]) for n in names]
@@ -1011,7 +1248,7 @@ def _check_resnet_update(net, got, want, dtype, tol: float,
     for (d_got, d_want), name in zip(moves, names):
         err = ((d_got - d_want).norm() / d_want.norm()).item()
         if not err <= tol:
-            raise AssertionError(f"resnet50 {dtype} update of "
+            raise AssertionError(f"{what} {dtype} update of "
                                  f"{name if len(moves) > 1 else 'all'}: "
                                  f"relative L2 {err}")
         l2 = max(l2, err)
@@ -1021,7 +1258,7 @@ def _check_resnet_update(net, got, want, dtype, tol: float,
             w = want[2][n]
             err = ((got[2][n] - w).abs().max() / w.abs().max()).item()
             if not err <= stats_tol:
-                raise AssertionError(f"resnet50 {dtype} {n}: {err}")
+                raise AssertionError(f"{what} {dtype} {n}: {err}")
             stats = max(stats, err)
     return {"update_rel_l2": l2, "bn_stats_err": stats}
 
@@ -1046,11 +1283,13 @@ def phase_train_correctness() -> None:
     1e-6."""
     import numpy as np
     import torch
-    from k8s_device_plugin_torch.workloads import flash, harness, run
+    from k8s_device_plugin_torch.workloads import flash, harness, moe, run
     from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
                                                              lm_loss)
+    from k8s_device_plugin_torch.workloads.deeplab import DeepLabV3
     from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
     from k8s_device_plugin_torch.workloads.resnet import resnet50
+    from k8s_device_plugin_torch.workloads.vgg import VGG16
 
     def sgd_step(loss_of, momentum):
         def step(model, *batch):
@@ -1114,6 +1353,56 @@ def phase_train_correctness() -> None:
                 "loss": got[0],
                 "loss_err": _resnet_loss_close(got[0], want[0], tol[0]),
                 **_check_resnet_update(net, got, want, dtype, *tol[1:])}
+
+        # the MoE LM: 2 x 65 tokens in 2 x 2 routing blocks, one
+        # whole-sequence absorb a layer (K3 on the card), plain SGD
+        moe_lm = moe.init_moe_lm_params(
+            torch.Generator().manual_seed(0), vocab, dim, heads, layers,
+            n_experts=run.MOE_EXPERTS, device="cpu")
+        tokens = torch.randint(0, vocab, (2, 65),
+                               generator=torch.Generator().manual_seed(2))
+        step = sgd_step(lambda m, t: moe.moe_lm_loss(
+            m, t, use_flash=True, shard_shape=(2, 2)), 0.0)
+        want = _train_step_on("cpu", moe_lm, step, tokens)
+        launches = flash.flash_absorb.launches
+        got = _train_step_on("cuda", moe_lm, step, tokens)
+        if flash.flash_absorb.launches - launches != layers:
+            raise AssertionError("the MoE LM train step did not run K3 once "
+                                 "a layer")
+        report["moe_lm"] = {"loss": got[0],
+                            "loss_err": loss_close("moe-lm", got[0], want[0]),
+                            **_check_update("moe_lm", moe_lm, got, want,
+                                            1e-4)}
+
+        # VGG-16 at batch 2 @ 32, dropout off (no generator), SGD-momentum
+        vgg = harness.init_model(VGG16(image_size=32, dtype=torch.float32),
+                                 0, "cpu")
+        x = torch.from_numpy(rng.standard_normal(
+            (2, 32, 32, 3)).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, 1000, (2,)))
+        step = sgd_step(lambda m, x, y: harness.cross_entropy(m(x), y), 0.9)
+        want = _train_step_on("cpu", vgg, step, x, labels)
+        got = _train_step_on("cuda", vgg, step, x, labels)
+        report["vgg16"] = {"loss": got[0],
+                           "loss_err": loss_close("vgg16", got[0], want[0]),
+                           **_check_update("vgg16", vgg, got, want, 1e-4)}
+
+        # DeepLab-v3 (full backbone, 21 classes) at the runner's train
+        # batch 1, @ 64, in fp64 (its fp32 classifier and resize aside),
+        # at the bounds of ResNet-50's fp64 step
+        net = harness.init_model(DeepLabV3(dtype=torch.float64), 0,
+                                 "cpu").double()
+        x = torch.from_numpy(rng.standard_normal((1, 64, 64, 3)))
+        labels = torch.from_numpy(rng.integers(0, 21, (1, 64, 64)))
+        step = sgd_step(lambda m, x, y: harness.seg_cross_entropy(m(x), y),
+                        0.9)
+        want = _train_step_on("cpu", net, step, x, labels)
+        got = _train_step_on("cuda", net, step, x, labels)
+        report["deeplab_float64"] = {
+            "loss": got[0],
+            "loss_err": _resnet_loss_close(got[0], want[0], 1e-6, "deeplab"),
+            **_check_resnet_update(net, got, want, torch.float64, 1e-4, 1e-6,
+                                   "deeplab")}
     emit("train_correctness", **report)
 
 
@@ -1140,6 +1429,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card()
     phase_build()
+    phase_compile_cache()
     kernels = {"probe_chain": phase_probe_kernel(),
                "lstm_cell": phase_lstm_kernel(),
                "flash_absorb": phase_flash_kernel()}
@@ -1149,6 +1439,7 @@ def main() -> int:
     phase_lm_profile()
     phase_lm_train_profile(attention)
     phase_model_train_profiles()
+    phase_moe_profile()
     phase_correctness()
     phase_train_correctness()
     for name, k in kernels.items():

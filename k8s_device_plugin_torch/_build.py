@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own into ``build/kernels/lib<name>-<hash>.so`` for ``sm_90a``; the hash
 covers the source, every shared header ``csrc/*.cuh`` and the flags, so an
-edited source or header builds anew and an unchanged one is reused. Sources build in parallel, one ``nvcc`` each.
-Nothing is built when this module is imported: the first launch of a
-kernel (or an explicit :func:`build_all`) builds it.
+edited source or header builds anew and an unchanged one is reused. Sources
+build in parallel, one ``nvcc`` each. Nothing is built when this module is
+imported: the first launch of a kernel (or an explicit :func:`build_all`)
+builds it. :func:`set_build_dir` moves the libraries elsewhere (the compile
+cache, ``workloads/harness.setup_compile_cache``) before the first load.
 """
 
 from __future__ import annotations
@@ -19,12 +21,25 @@ import threading
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
+                                 "kernels")
+#: where the libraries are built and looked for (see :func:`set_build_dir`)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+def set_build_dir(path: str | None = None) -> str:
+    """Build and look for the libraries under ``path`` from now on (None:
+    ``build/kernels`` beside the package); returns the directory. A
+    library already loaded stays loaded: its name carries its hash, so it
+    is the one the new directory would hold."""
+    global BUILD_DIR
+    BUILD_DIR = path or DEFAULT_BUILD_DIR
+    return BUILD_DIR
 
 
 def sources() -> list[str]:

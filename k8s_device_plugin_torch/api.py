@@ -28,3 +28,17 @@ TPU_CORE_UTILIZATION_POLICY = "VTPU_CORE_UTILIZATION_POLICY"
 # "true" -> kill the process on a memory-limit violation instead of only
 # reporting it (ACTIVE_OOM_KILLER analog).
 ACTIVE_OOM_KILLER = "VTPU_ACTIVE_OOM_KILLER"
+# The compile-cache key this worker's executable is cached under: workloads
+# record it into the cache manifest the monitor reports.
+TPU_COMPILE_CACHE_KEY = "VTPU_COMPILE_CACHE_KEY"
+# Directory of the persistent compile cache inside the container; when set,
+# workloads/harness.py builds the kernel libraries there, so a re-placed pod
+# on this host starts warm.
+TPU_COMPILE_CACHE_DIR = "VTPU_COMPILE_CACHE_DIR"
+# Manifest of cache keys compiled on this host, kept next to the cache and
+# shipped by the monitor with the usage batch: filename and key cap.
+COMPILE_CACHE_MANIFEST = "vtpu_cache_keys.json"
+COMPILE_CACHE_MANIFEST_MAX_KEYS = 256
+# A vouched key older than this is presumed evicted from the cache: the
+# writer drops it on rewrite.
+COMPILE_CACHE_MANIFEST_MAX_AGE_S = 7 * 24 * 3600.0

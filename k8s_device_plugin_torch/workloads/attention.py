@@ -41,10 +41,12 @@ def reference_attention(q, k, v, causal: bool = True):
 
 class LMLayer(nn.Module):
     """One decoder block's weights: the fused ``qkv`` (MHA) or ``wq`` and
-    ``wkv`` (GQA), then ``proj``, ``mlp_in``, ``mlp_out``, all [in, out]."""
+    ``wkv`` (GQA), then ``proj``, ``mlp_in``, ``mlp_out``, all [in, out].
+    Without ``mlp`` the block has no ``mlp_in``/``mlp_out`` (its feed-forward
+    is the caller's ``ffn``, as the MoE LM's experts)."""
 
     def __init__(self, dim: int, heads: int, kv_heads: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, mlp: bool = True):
         super().__init__()
         head_dim = dim // heads
 
@@ -58,8 +60,8 @@ class LMLayer(nn.Module):
             self.wq = weight(dim, dim)
             self.wkv = weight(dim, 2 * kv_heads * head_dim)
         self.proj = weight(dim, dim)
-        self.mlp_in = weight(dim, 4 * dim)
-        self.mlp_out = weight(4 * dim, dim)
+        self.mlp_in = weight(dim, 4 * dim) if mlp else None
+        self.mlp_out = weight(4 * dim, dim) if mlp else None
 
 
 class LM(nn.Module):

@@ -12,6 +12,10 @@ its state_dict key directly and only the leaf changes:
   plus the ``num_batches_tracked`` counter PyTorch keeps;
 * anything else (the LSTM cell's ``wx``/``wh``/``b``, in [i|f|g|o] order)
   as it is: the kernel takes the Flax layout.
+
+VGG-16's ``fc1`` needs no reordering: Flax flattens the NHWC activation,
+so its 25,088 rows run in (h, w, c) order, and the port flattens the
+channels-last view in the same order (``vgg.VGG16``).
 """
 
 from __future__ import annotations
@@ -58,9 +62,15 @@ def lm_params_to_state_dict(params: Mapping[str, Any]
     """The JAX LM pytree (``{"embed": ..., "layers": [{...}, ...]}``, numpy
     arrays) -> a state_dict for ``attention.LM``: the same names and the
     same [in, out] layout, so only the paths flatten (``layers.0.qkv``);
-    both the fused MHA and the GQA layout. Arrays keep their dtype."""
+    both the fused MHA and the GQA layout, and the MoE LM's nested
+    ``moe`` dicts (``layers.0.moe.w_in``). Arrays keep their dtype."""
     out = {"embed": torch.tensor(np.asarray(params["embed"]))}
     for i, lyr in enumerate(params["layers"]):
-        for name, arr in lyr.items():
-            out[f"layers.{i}.{name}"] = torch.tensor(np.asarray(arr))
+        for path, arr in _leaves(lyr):
+            out[".".join(["layers", str(i), *path])] = torch.tensor(arr)
     return out
+
+
+#: the MoE LM pytree (``{embed, layers: [{qkv, proj, moe: {gate, w_in,
+#: w_out}}]}``) -> a state_dict for ``moe.MoELM``: the same flattening
+moe_lm_params_to_state_dict = lm_params_to_state_dict

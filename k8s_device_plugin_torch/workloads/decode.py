@@ -14,8 +14,8 @@ the same slots. The prefill is token by token, as in the JAX package.
 
 Exactness contract: greedy generation through the cache equals greedy
 generation recomputed from scratch with ``lm_forward`` at every step
-(:func:`reference_generate`). MoE serving (``moe_generate``) waits for the
-MoE port.
+(:func:`reference_generate`). MoE serving (:func:`moe_generate`) swaps
+the feed-forward for the drop-free expert apply (:func:`dropfree_moe_ffn`).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 
 from .attention import (LM, _mlp, _norm, apply_rope, kv_heads_of, layer_qkv,
                         lm_forward, rope_tables)
+from .moe import moe_layer_dense
 
 
 def init_kv_cache(params: LM, batch: int, max_len: int):
@@ -150,6 +151,22 @@ def generate(params: LM, prompt, steps: int, max_len: int | None = None,
     gen = decode_from(params, cache, pos, logits, steps, ffn,
                       use_rope=use_rope)
     return torch.cat([prompt, gen.to(prompt.dtype)], dim=1)
+
+
+def dropfree_moe_ffn(h, lyr):
+    """The MoE decoder's feed-forward for serving: every token reaches its
+    expert (capacity dropping is a training-throughput compromise; serving
+    wants the model's own prediction), as ``capacity_factor = n_experts``
+    makes the capacity the step's token count."""
+    out, _ = moe_layer_dense(h, lyr.moe,
+                             capacity_factor=float(lyr.moe.w_in.shape[0]))
+    return out
+
+
+def moe_generate(params, prompt, steps: int, max_len: int | None = None):
+    """Greedy serving for the MoE decoder (``moe.init_moe_lm_params``):
+    :func:`generate` with :func:`dropfree_moe_ffn`."""
+    return generate(params, prompt, steps, max_len, ffn=dropfree_moe_ffn)
 
 
 @torch.inference_mode()

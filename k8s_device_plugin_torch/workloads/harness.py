@@ -4,20 +4,29 @@ workloads.
 Counterpart of the single-device part of
 ``k8s_device_plugin_tpu/workloads/harness.py`` (``init_model``,
 ``make_infer_fn``, ``cross_entropy``, ``seg_cross_entropy``,
-``make_train_fn``, ``init_train_state``, ``timed_warmup``, ``time_fn``),
-with ``torch.cuda.synchronize`` where JAX waits with ``block_until_ready``.
-The JAX train state's ``params`` and ``batch_stats`` live in the module,
-its ``opt_state`` in a ``torch.optim`` optimizer. Meshes and the compile
-cache are not ported yet.
+``make_train_fn``, ``init_train_state``, ``timed_warmup``, ``time_fn``,
+the compile cache's ``setup_compile_cache``, ``active_compile_cache_dir``
+and ``record_compile_cache_key``), with ``torch.cuda.synchronize`` where
+JAX waits with ``block_until_ready``. The JAX train state's ``params`` and
+``batch_stats`` live in the module, its ``opt_state`` in a ``torch.optim``
+optimizer. Meshes are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import _build
+from ..api import (COMPILE_CACHE_MANIFEST as CACHE_MANIFEST,
+                   COMPILE_CACHE_MANIFEST_MAX_AGE_S as MAX_MANIFEST_AGE_S,
+                   COMPILE_CACHE_MANIFEST_MAX_KEYS as MAX_MANIFEST_KEYS,
+                   TPU_COMPILE_CACHE_DIR)
 
 
 def synchronize(device: torch.device | str) -> None:
@@ -84,13 +93,26 @@ def init_train_state(model: nn.Module) -> dict:
 
 
 def make_train_fn(model: nn.Module, optimizer: torch.optim.Optimizer,
-                  loss_fn=cross_entropy):
+                  loss_fn=cross_entropy, has_dropout: bool = False):
     """(state, batch, labels) -> (state, loss): one step of ``optimizer``
     on ``loss_fn(model(batch), labels)``; BatchNorm statistics update in
-    the forward, as the JAX step's mutable ``batch_stats``."""
+    the forward, as the JAX step's mutable ``batch_stats``. With
+    ``has_dropout`` the model is called with ``dropout_generator``, a
+    generator on the batch's device re-seeded with 0 every step, as the
+    JAX step re-seeds its dropout key with ``PRNGKey(0)``: every step
+    drops the same units."""
+    generator = None
+
     def train_step(state, batch, labels):
+        nonlocal generator
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(batch), labels)
+        if has_dropout:
+            if generator is None:
+                generator = torch.Generator(device=batch.device)
+            out = model(batch, dropout_generator=generator.manual_seed(0))
+        else:
+            out = model(batch)
+        loss = loss_fn(out, labels)
         loss.backward()
         optimizer.step()
         return {"step": state["step"] + 1}, loss.detach()
@@ -146,3 +168,95 @@ def time_fn(fn, *args, device, iters: int = 10, warmup: int = 2) -> float:
         fn(*args)
     synchronize(device)
     return (time.perf_counter() - t0) / iters
+
+
+# -------------------------------------------------- persistent compile cache
+
+#: the directory setup_compile_cache enabled ("" = cache off); the vouch
+#: after the first call targets this, never the raw env var
+_active_cache_dir = ""
+
+
+def active_compile_cache_dir() -> str:
+    return _active_cache_dir
+
+
+def setup_compile_cache() -> str:
+    """Point the kernel builds at the compile cache when the vTPU env
+    contract names one (``VTPU_COMPILE_CACHE_DIR``, injected by the device
+    plugin's Allocate). Returns the directory ("" = off, and the libraries
+    stay in ``build/kernels``).
+
+    Where JAX keeps XLA executables in its persistent compilation cache,
+    the port has none to keep: what it compiles are the nvcc-built kernel
+    libraries (``_build``). So the cache holds those, under
+    ``<dir>/kernels``, and a pod re-placed on a warm host loads them
+    instead of running nvcc. Call it before any kernel loads. No key is
+    vouched for here: ``record_compile_cache_key`` runs after the first
+    call has built what it needs, so a worker that dies before that never
+    advertises the host warm."""
+    global _active_cache_dir
+    _active_cache_dir = ""
+    cache_dir = os.environ.get(TPU_COMPILE_CACHE_DIR, "")
+    kernels = os.path.join(cache_dir, "kernels") if cache_dir else None
+    if kernels:
+        try:
+            os.makedirs(kernels, exist_ok=True)
+        except OSError:  # an unwritable cache: run cold, build locally
+            kernels = cache_dir = ""
+    _build.set_build_dir(kernels)
+    _active_cache_dir = cache_dir
+    return cache_dir
+
+
+def record_compile_cache_key(key: str, cache_dir: str = "") -> None:
+    """Vouch for ``key`` in the host manifest (``vtpu_cache_keys.json``):
+    at most ``COMPILE_CACHE_MANIFEST_MAX_KEYS`` keys, the oldest dropped
+    first, none older than ``COMPILE_CACHE_MANIFEST_MAX_AGE_S``, foreign or
+    corrupt entries filtered out. Best effort: a read-only cache dir never
+    fails the workload.
+
+    The manifest is shared by every workload on the host, so the
+    read-modify-write holds an flock on ``<manifest>.lock``: two pods
+    vouching at once must not lose each other's keys."""
+    cache_dir = cache_dir or os.environ.get(TPU_COMPILE_CACHE_DIR, "")
+    if not key or not cache_dir:
+        return
+    path = os.path.join(cache_dir, CACHE_MANIFEST)
+    try:
+        lock = open(f"{path}.lock", "w")
+    except OSError:
+        return
+    try:
+        try:
+            import fcntl
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        except (ImportError, OSError):
+            pass  # no flock: degrade to the racy best-effort write
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            doc = {}
+        keys = doc.get("keys") if isinstance(doc, dict) else None
+        if not isinstance(keys, dict):
+            keys = {}
+        # numeric timestamps only (the LRU min() below compares them), and
+        # none the cache's own eviction has likely removed by now
+        now = time.time()
+        keys = {k: ts for k, ts in keys.items()
+                if isinstance(k, str) and isinstance(ts, (int, float))
+                and not isinstance(ts, bool)
+                and now - ts <= MAX_MANIFEST_AGE_S}
+        keys[key] = now
+        while len(keys) > MAX_MANIFEST_KEYS:
+            del keys[min(keys, key=keys.get)]
+        try:
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump({"keys": keys}, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
+    finally:
+        lock.close()

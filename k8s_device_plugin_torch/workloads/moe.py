@@ -1,0 +1,234 @@
+"""Switch mixture-of-experts and the MoE decoder, single device.
+
+Counterpart of the single-device part of
+``k8s_device_plugin_tpu/workloads/moe.py``: Switch top-1 routing with a
+static capacity (:func:`_route`), the expert FFN stacks, the layer with
+every expert local (:func:`moe_layer_dense`, also the serving path's
+drop-free expert apply in ``decode.py``), its per-shard oracle
+(:func:`moe_reference`), and the long-context MoE decoder
+(:func:`moe_lm_forward`, :func:`moe_lm_loss`): ``attention.lm_forward``
+with its ``ffn`` hook swapped for the experts, so both LMs share one
+decoder loop and every attention path (dense, or the flash absorb).
+
+The parameters keep the JAX names and layouts (``gate`` [D, E], ``w_in``
+[E, D, F], ``w_out`` [E, F, D]), so carrying weights across is a rename
+(``convert.moe_lm_params_to_state_dict``). Capacity is a per-shard
+semantic: on one device the forward takes ``shard_shape=(dp, sp)`` and
+routes each block of batch and sequence on its own, as the JAX oracle
+does. The dispatch, the expert FFNs and the combine are plain products in
+fp32, as JAX casts them, outside any kernel. The expert-parallel layer
+(two all-to-alls over an ``ep`` mesh axis) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import LMLayer, lm_forward
+from .harness import cross_entropy
+
+
+def _not_ported(name: str):
+    raise NotImplementedError(f"{name}: the expert-parallel layer over an "
+                              f"ep mesh is not yet ported")
+
+
+class MoE(nn.Module):
+    """One Switch layer's weights: ``gate`` [D, E] and the expert stacks
+    ``w_in`` [E, D, F], ``w_out`` [E, F, D]."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gate = nn.Parameter(torch.empty(dim, n_experts, dtype=dtype))
+        self.w_in = nn.Parameter(torch.empty(n_experts, dim, hidden,
+                                             dtype=dtype))
+        self.w_out = nn.Parameter(torch.empty(n_experts, hidden, dim,
+                                              dtype=dtype))
+
+
+def _init(module: nn.Module, generator: torch.Generator, dim: int,
+          hidden: int) -> None:
+    """Every weight normal / sqrt(dim), ``w_out`` normal / sqrt(hidden)
+    (the JAX scales), drawn in fp32 on the CPU from ``generator``."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            scale = hidden ** -0.5 if name.endswith("w_out") else dim ** -0.5
+            p.copy_(torch.randn(p.shape, generator=generator) * scale)
+
+
+def init_moe_params(generator: torch.Generator, dim: int, hidden: int,
+                    n_experts: int, dtype=torch.float32,
+                    device: str | torch.device = "cuda") -> MoE:
+    """A Switch layer with random weights (see :func:`_init`)."""
+    module = MoE(dim, hidden, n_experts, dtype)
+    _init(module, generator, dim, hidden)
+    return module.to(device)
+
+
+def _route(x, gate_w, n_experts: int, capacity: int):
+    """Switch top-1 routing with static capacity on tokens x [..., N, D]
+    (leading dims are shards, each routed on its own).
+
+    Returns (dispatch [..., N, E, C] 0/1, combine = dispatch * the chosen
+    expert's probability, aux [...]). ``dispatch[n, e, c] = 1`` iff token n
+    is the c-th token (in token order) routed to expert e and c <
+    capacity; a token past its expert's capacity is dropped (an all-zero
+    row, as ``jax.nn.one_hot`` gives for an index out of range, where
+    ``F.one_hot`` would raise). The logits are in x's dtype, the softmax
+    in fp32; ``argmax`` takes the first maximum, as ``jnp.argmax``."""
+    probs = torch.softmax((x @ gate_w).float(), dim=-1)       # [..., N, E]
+    idx = probs.argmax(dim=-1)                                # [..., N]
+    gate = probs.gather(-1, idx[..., None])[..., 0]
+    onehot = F.one_hot(idx, n_experts).float()
+    # 0-based position of each token within its expert's queue
+    pos = torch.cumsum(onehot, dim=-2) * onehot - onehot
+    keep = onehot * (pos < capacity)
+    slots = torch.arange(capacity, dtype=pos.dtype, device=pos.device)
+    dispatch = keep[..., None] * (pos[..., None] == slots)    # [..., N, E, C]
+    combine = dispatch * gate[..., None, None]
+    # Switch aux loss: E * <fraction routed to e> . <mean prob of e>
+    frac = onehot.mean(dim=-2)
+    mean_prob = probs.mean(dim=-2)
+    aux = n_experts * (frac * mean_prob).sum(dim=-1)
+    return dispatch, combine, aux
+
+
+def _expert_ffn(xs, w_in, w_out):
+    """[..., E, S, D] tokens through each expert's tanh-gelu FFN."""
+    h = F.gelu(torch.einsum("...esd,edf->...esf", xs, w_in),
+               approximate="tanh")
+    return torch.einsum("...esf,efd->...esd", h, w_out)
+
+
+def moe_layer_dense(x, params: MoE, capacity_factor: float = 1.25):
+    """One MoE layer with every expert local. x: [N, D], or [S, N, D] for
+    S shards routed each on its own (capacity per shard); returns (the
+    expert mixture in x's dtype, without the residual; aux, one per
+    shard)."""
+    n_experts = params.w_in.shape[0]
+    capacity = max(1, math.ceil(x.shape[-2] * capacity_factor / n_experts))
+    dispatch, combine, aux = _route(x, params.gate, n_experts, capacity)
+    xs = torch.einsum("...nec,...nd->...ecd", dispatch, x.float())
+    ys = _expert_ffn(xs, params.w_in.float(), params.w_out.float())
+    out = torch.einsum("...nec,...ecd->...nd", combine, ys)
+    return out.to(x.dtype), aux
+
+
+def moe_reference(x_shards, params: MoE, capacity_factor: float = 1.25):
+    """Dense oracle of the sharded layer: x_shards [S, N, D], the token
+    shards as a mesh would split them. Returns (out [S, N, D], mean aux)."""
+    out, aux = moe_layer_dense(x_shards, params, capacity_factor)
+    return out, aux.mean()
+
+
+def moe_layer(x, params, axis_name: str = "ep",
+              capacity_factor: float = 1.25):
+    """The expert-parallel layer (all-to-alls over ``axis_name``)."""
+    _not_ported("moe_layer")
+
+
+def moe_forward(x, params, mesh, capacity_factor: float = 1.25,
+                dp_axis: str = "dp", ep_axis: str = "ep"):
+    """The sharded MoE over a dp x ep mesh."""
+    _not_ported("moe_forward")
+
+
+def moe_loss(params, x, targets, mesh, capacity_factor: float = 1.25,
+             aux_weight: float = 0.01):
+    """The ep dry run's training objective."""
+    _not_ported("moe_loss")
+
+
+# --------------------------------------------- long-context MoE mini-LM
+
+class MoELMLayer(LMLayer):
+    """A decoder block whose feed-forward is a Switch layer: ``qkv``,
+    ``proj`` and ``moe`` (no ``mlp_in``/``mlp_out``)."""
+
+    def __init__(self, dim: int, heads: int, hidden: int, n_experts: int,
+                 dtype: torch.dtype):
+        super().__init__(dim, heads, heads, dtype, mlp=False)
+        self.moe = MoE(dim, hidden, n_experts, dtype)
+
+
+class MoELM(nn.Module):
+    """The MoE decoder's parameters (``embed``, ``layers``); its forward is
+    :func:`moe_lm_forward`."""
+
+    def __init__(self, vocab: int, dim: int, heads: int, layers: int,
+                 n_experts: int, hidden: int | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = 4 * dim if hidden is None else hidden
+        self.heads = heads
+        self.embed = nn.Parameter(torch.empty(vocab, dim, dtype=dtype))
+        self.layers = nn.ModuleList(
+            MoELMLayer(dim, heads, hidden, n_experts, dtype)
+            for _ in range(layers))
+
+    def forward(self, tokens, **kwargs):
+        return moe_lm_forward(self, tokens, **kwargs)
+
+
+def init_moe_lm_params(generator: torch.Generator, vocab: int, dim: int,
+                       heads: int, layers: int, n_experts: int,
+                       hidden: int | None = None, dtype=torch.float32,
+                       device: str | torch.device = "cuda") -> MoELM:
+    """The MoE decoder with random weights: every weight normal /
+    sqrt(dim) but ``w_out``, normal / sqrt(hidden) (hidden defaults to 4
+    dim), drawn in fp32 on the CPU from ``generator``, then cast to
+    ``dtype`` and moved to ``device``."""
+    model = MoELM(vocab, dim, heads, layers, n_experts, hidden, dtype)
+    _init(model, generator, dim, model.layers[0].moe.w_in.shape[-1])
+    return model.to(device)
+
+
+def moe_lm_forward(params: MoELM, tokens, mesh=None,
+                   capacity_factor: float = 1.25, seq_mode: str | None = None,
+                   shard_shape: tuple[int, int] | None = None,
+                   use_flash: bool = False):
+    """(logits [B, T, V], mean of the layers' aux losses) for ``tokens``
+    [B, T]. Each layer routes the (dp, sp) blocks of ``shard_shape`` (batch
+    split dp ways, sequence sp ways; default one block) on their own, in
+    the JAX oracle's order. ``use_flash`` runs each layer's attention as
+    one whole-sequence flash absorb (no chunking, as JAX passes none). A
+    mesh or a ``seq_mode`` is not ported yet."""
+    if mesh is not None or seq_mode is not None:
+        raise NotImplementedError("moe_lm_forward: a mesh / seq_mode "
+                                  "(sequence and expert parallelism) is "
+                                  "not yet ported")
+    dp, sp = shard_shape if shard_shape is not None else (1, 1)
+    aux_acc = []
+
+    def moe_ffn(h, lyr):
+        bb, tt, dd = h.shape
+        shards = h.reshape(dp, bb // dp, sp, tt // sp, dd).transpose(1, 2) \
+            .reshape(dp * sp, (bb // dp) * (tt // sp), dd)
+        out, aux = moe_reference(shards, lyr.moe, capacity_factor)
+        aux_acc.append(aux)
+        return out.reshape(dp, sp, bb // dp, tt // sp, dd).transpose(1, 2) \
+            .reshape(bb, tt, dd)
+
+    logits = lm_forward(params, tokens, use_flash=use_flash, ffn=moe_ffn)
+    return logits, sum(aux_acc) / len(aux_acc)
+
+
+def moe_lm_loss(params: MoELM, tokens, mesh=None,
+                capacity_factor: float = 1.25, aux_weight: float = 0.01,
+                seq_mode: str | None = None,
+                shard_shape: tuple[int, int] | None = None,
+                use_flash: bool = False):
+    """Next-token cross entropy in fp32 over ``tokens`` [B, T + 1] plus
+    ``aux_weight`` times the load-balance aux; differentiable through the
+    flash absorb's recompute backward when ``use_flash`` is on (each
+    backward then rebuilds a whole-sequence [B, H, T, T] fp32 score
+    block)."""
+    logits, aux = moe_lm_forward(params, tokens[:, :-1], mesh,
+                                 capacity_factor, seq_mode, shard_shape,
+                                 use_flash)
+    return cross_entropy(logits, tokens[:, 1:]) + aux_weight * aux

@@ -59,10 +59,15 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int,
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in its input's dtype, whatever the weight's
-    (Flax's ``dtype`` beside its ``param_dtype``)."""
+    and the bias's (Flax's ``dtype`` beside its ``param_dtype``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+def _cast(bias, dtype):
+    return None if bias is None else bias.to(dtype)
 
 
 class SameConv2d(Conv2d):
@@ -70,8 +75,8 @@ class SameConv2d(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, pad = _pad_same(x, self.kernel_size[0], self.stride[0])
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
-                        pad)
+        return F.conv2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
+                        self.stride, pad)
 
 
 class BatchNorm(nn.BatchNorm2d):

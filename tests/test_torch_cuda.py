@@ -311,3 +311,96 @@ def test_greedy_generate_on_the_card_is_token_exact(cuda):
         model, prompt, steps=8,
         forward=lambda p, t: lm_forward(p, t, use_flash=True))
     assert torch.equal(got, want)
+
+
+def test_whole_sequence_absorb_gradient_at_the_moe_lm_train_shape(cuda):
+    """The MoE LM trains on one whole-sequence absorb a layer (its loss
+    passes no chunking): q, k, v [4, 2048, 8, 64] bf16, causal, one K3
+    launch, its backward rebuilding a [4, 8, 2048, 2048] fp32 score block;
+    gradients of sum(sin(out)) within 2e-2 of the largest |grad| of dense
+    attention's."""
+    from k8s_device_plugin_torch.workloads.attention import \
+        reference_attention
+    rng = np.random.default_rng(22)
+    inputs = [torch.from_numpy(rng.standard_normal((4, 2048, 8, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(3)]
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = torch.sin(fn(*leaves).float()).sum()
+        return torch.autograd.grad(out, leaves)
+    before = flash.flash_absorb.launches
+    got = grads(lambda *a: flash.flash_attention(*a, seq_block=None))
+    assert flash.flash_absorb.launches == before + 1
+    want = grads(reference_attention)
+    for g, w in zip(got, want):
+        scale = w.float().abs().max()
+        assert (g.float() - w.float()).abs().max() <= 2e-2 * scale
+
+
+def _route_decisions(moe):
+    """Patch moe._route to record each call's expert choices; returns the
+    record and the original to restore."""
+    decisions, route = [], moe._route
+
+    def recording(x, gate_w, n_experts, capacity):
+        decisions.append(torch.softmax((x @ gate_w).float(), -1).argmax(-1)
+                         .cpu())
+        return route(x, gate_w, n_experts, capacity)
+    moe._route = recording
+    return decisions, route
+
+
+def test_moe_lm_on_the_card_matches_the_cpu(cuda):
+    """The MoE LM (vocab 512, dim 128, 2 heads of 64, 2 layers, 8 experts)
+    on 2 x 64 tokens in 2 x 2 routing blocks, fp32 with TF32 off: through
+    K3 on the card against the plain absorb on the CPU, every routing
+    decision the same (a flip moves a token's output by O(1)), the logits
+    within 1e-4 of the largest and the aux loss at 1e-5."""
+    import copy
+    from k8s_device_plugin_torch.workloads import moe
+    ref = moe.init_moe_lm_params(torch.Generator().manual_seed(0), 512, 128,
+                                 2, 2, n_experts=8, device="cpu")
+    model = copy.deepcopy(ref).to(cuda)
+    tokens = torch.randint(0, 512, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    outs, choices = [], []
+    for net, t in ((ref, tokens), (model, tokens.to(cuda))):
+        decisions, route = _route_decisions(moe)
+        try:
+            with torch.inference_mode():
+                outs.append(moe.moe_lm_forward(net, t, use_flash=True,
+                                               shard_shape=(2, 2)))
+        finally:
+            moe._route = route
+        choices.append(torch.stack(decisions))
+    assert torch.equal(choices[0], choices[1])
+    (want, aux_want), (got, aux_got) = outs
+    scale = want.abs().max()
+    torch.testing.assert_close(got.cpu() / scale, want / scale, rtol=0,
+                               atol=1e-4)
+    assert abs(aux_got.item() - aux_want.item()) <= 1e-5
+
+
+def test_vgg16_dropout_step_on_the_card_matches_the_cpu(cuda):
+    """VGG-16 at batch 2 @ 32, fp32, in training with dropout: the masks
+    drawn on the CPU (the generator's device) and moved to the card, so
+    both devices drop the same units; the gradients within 1e-4 of each
+    parameter's largest."""
+    import copy
+    from k8s_device_plugin_torch.workloads.vgg import VGG16
+    ref = harness.init_model(VGG16(num_classes=10, image_size=32,
+                                   dtype=torch.float32), 0, "cpu").train()
+    model = copy.deepcopy(ref).to(cuda)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, (2,)))
+    g = torch.Generator()
+    for net, dev in ((ref, "cpu"), (model, cuda)):
+        harness.cross_entropy(net(x.to(dev), dropout_generator=g.manual_seed(
+            0)), labels.to(dev)).backward()
+    for (name, w), p in zip(ref.named_parameters(), model.parameters()):
+        scale = w.grad.abs().max()
+        assert scale > 0, name
+        assert (p.grad.cpu() - w.grad).abs().max() <= 1e-4 * scale, name

@@ -5,14 +5,19 @@ whatever reads one reads the other. Timings from a CPU run say nothing
 about a card; only the keys and the control flow are checked here.
 """
 
+import contextlib
+import functools
+import io
 import json
 
+import jax
 import pytest
 import torch
 
 from k8s_device_plugin_torch import bench as tbench
 from k8s_device_plugin_torch.entry import entry
 from k8s_device_plugin_torch.workloads import run as trun
+from k8s_device_plugin_tpu.workloads import harness as jh
 from k8s_device_plugin_tpu.workloads import run as jrun
 from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
@@ -132,11 +137,99 @@ def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
     assert trun.CASES[model] == jrun.CASES[model]
 
 
+@pytest.mark.parametrize("mode", ["infer", "train", "decode"])
+def test_runner_runs_the_moe_lm_with_the_jax_runners_keys(mode, monkeypatch,
+                                                          capsys):
+    """moe-lm in every mode, both runners at a tiny LM_CONFIG: the JAX
+    runner's keys, the sequence padded to a whole 1024-token routing block
+    to infer and train (seq 1024 from --size 16, as JAX reports it), the
+    prompt as given to decode, and no kernel launched on the CPU."""
+    monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
+    monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
+    tiny = ["--model", "moe-lm", "--mode", mode, "--batch", "2", "--size",
+            "16", "--steps", "1"]
+    with monkeypatch.context() as patch:
+        patch.setattr(jrun, "LM_CONFIG", (2, 16, 64, 1))
+        patch.setattr(trun, "LM_CONFIG", (2, 16, 64, 1))
+        assert jrun.main(tiny) == 0
+        want = _last_json(capsys)
+        from k8s_device_plugin_torch.workloads.flash import flash_absorb
+        before = flash_absorb.launches
+        assert trun.main(tiny + ["--device", "cpu"]) == 0
+        got = _last_json(capsys)
+    assert sorted(got) == sorted(want)
+    assert (got["model"], got["mode"], got["batch"]) == ("moe-lm", mode, 2)
+    if mode == "decode":
+        assert got["prompt"] == want["prompt"] == 16
+        assert got["gen_tokens_per_s"] > 0
+    else:
+        assert (got["seq"], got["sp"]) == (want["seq"], want["sp"]) == (1024,
+                                                                         1)
+        assert got["tokens_per_s"] > 0
+    assert flash_absorb.launches == before
+    assert trun.CASES["moe-lm"] == jrun.CASES["moe-lm"]
+    assert (trun.MOE_EXPERTS, trun.MOE_GROUP) == (8, 1024)
+
+
+@functools.lru_cache
+def _jax_conv_model_keys(mode):
+    """The JAX runner's keys for a convolutional model in ``mode``, read
+    once: they come from one ``_bench_loop`` line whatever the model, so
+    its DeepLab with two small stages gives them (with its Flax init
+    traced once: run eagerly, the init alone costs VGG ~15 CPU-s)."""
+    from k8s_device_plugin_tpu.workloads.deeplab import DeepLabV3
+    init = jh.init_model
+
+    def small(name, dtype, on_tpu=False):
+        return DeepLabV3(dtype=dtype, backbone_blocks=((16, 1, 1),
+                                                       (32, 1, 2)))
+
+    def jit_init(model, sample, rng=None, train=False):
+        return jax.jit(lambda b: init(model, b, rng, train))(sample)
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as patch, \
+            contextlib.redirect_stdout(out):
+        patch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
+        patch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
+        patch.setattr(jrun, "build_model", small)
+        patch.setattr(jh, "init_model", jit_init)
+        assert jrun.main(["--model", "deeplab", "--mode", mode, "--batch",
+                          "1", "--size", "32", "--steps", "1"]) == 0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert (line["model"], line["mode"]) == ("deeplab", mode)
+    return sorted(line)
+
+
+@pytest.mark.parametrize("model,mode", [("vgg16", "infer"),
+                                        ("vgg16", "train"),
+                                        ("deeplab", "infer"),
+                                        ("deeplab", "train")])
+def test_runner_runs_vgg16_and_deeplab_with_the_jax_runners_keys(
+        model, mode, monkeypatch, capsys):
+    """Cases 3.x and 4.x at full width, batch 1 @ 32 on the CPU (VGG trains
+    with its dropout, DeepLab on per-pixel labels): the JAX runner's keys,
+    and no port kernel launched."""
+    monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
+    monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
+    want = _jax_conv_model_keys(mode)
+    from k8s_device_plugin_torch.workloads.flash import flash_absorb
+    before = (flash_absorb.launches, _lstm_launches())
+    assert trun.main(["--model", model, "--mode", mode, "--batch", "1",
+                      "--size", "32", "--steps", "1", "--device",
+                      "cpu"]) == 0
+    got = _last_json(capsys)
+    assert sorted(got) == want
+    assert (got["model"], got["mode"], got["batch"]) == (model, mode, 1)
+    assert got["items_per_s"] > 0
+    assert (flash_absorb.launches, _lstm_launches()) == before
+    assert trun.CASES[model] == jrun.CASES[model]
+
+
 @pytest.mark.parametrize("argv", [
-    ["--model", "vgg16"],
-    ["--model", "moe-lm"],
-    ["--model", "vgg16", "--mode", "train"],
-    ["--model", "deeplab", "--mode", "train"],
+    ["--model", "lm", "--multichip"],
+    ["--model", "resnet50", "--multichip"],
+    ["--model", "vgg16", "--mode", "train", "--multichip"],
+    ["--model", "moe-lm", "--multichip"],
     ["--model", "lstm", "--multichip"],
 ])
 def test_runner_refuses_what_is_not_ported(argv):

@@ -28,6 +28,14 @@ def one_torch_thread():
 
 def seeded_variables(model, x, seed: int, train: bool = True) -> dict:
     """Variables in the tree of ``model``'s init on ``x``, fp32, drawn from
+    ``seed`` (see :func:`seeded_tree`)."""
+    shapes = jax.eval_shape(
+        lambda b: jh.init_model(model, b, train=train), x)
+    return seeded_tree(shapes, seed)
+
+
+def seeded_tree(shapes, seed: int) -> dict:
+    """Arrays for the shapes of a Flax variable tree, fp32, drawn from
     ``seed``: kernels normal over sqrt(fan-in), BatchNorm scales near 1,
     other vectors and running means near 0, running variances in
     [0.5, 1.5]."""
@@ -43,6 +51,4 @@ def seeded_variables(model, x, seed: int, train: bool = True) -> dict:
                 np.float32)
         return (float(name == "scale")
                 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-    shapes = jax.eval_shape(
-        lambda b: jh.init_model(model, b, train=train), x)
     return jax.tree_util.tree_map_with_path(draw, dict(shapes))

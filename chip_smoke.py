@@ -27,7 +27,11 @@ Phases, one JSON line each; any failure exits non-zero:
 5-12. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
    (batch 50 @ 346) natively and as a 4-way share under the cooperative
-   limiter with the duty probe sampling beside it (``bench.measure``);
+   limiter with the duty probe sampling beside it, then the bench's
+   oversubscribe phase (10 replicas at 8 @ 64 past a 64 MiB cap under
+   ``VTPU_OVERSUBSCRIBE=1``: spill above 0, no violation) and its duty
+   check (case 1.1 at core limit 0 and 50: the ratio in [0.35, 0.65])
+   (``bench.measure``);
    LSTM case 5.1 inference through the runner; the long-context LM
    (``LM_CONFIG``, batch 8 x 2048, bf16) through the runner in
    ``--mode infer`` (attention through the flash absorb) and in
@@ -40,6 +44,12 @@ Phases, one JSON line each; any failure exits non-zero:
    x 2048, the same) and ``decode`` (no port kernel), and VGG-16 (cases
    3.1, 3.2) and DeepLab-v3 (case 4.1, and batch 1 @ 512 to train) in
    ``--mode infer`` and ``train`` (no port kernel: cuDNN convolutions);
+   then ``--multichip`` at world 1 over NCCL (``multichip_card``): ResNet-50
+   and the LM in ``--mode infer`` and ``train`` through the runner, each
+   against the same path without a mesh, and the ring attention with
+   ``use_flash`` through K3 at the LM's shape, forward and gradients
+   against the ring's plain absorb (one card cannot hold a multi-rank NCCL
+   group: the multi-rank legs are checked on CPU ranks in the tests);
 13. the LM's forward, decode step and train step, a train step of
    ResNet-50 (case 1.2) and of the LSTM (case 5.2), and the MoE LM's
    forward and train step, under torch.profiler: device time by kernel
@@ -154,6 +164,16 @@ def check_close(what: str, got, want, tol: float) -> float:
     if not torch.isfinite(got.float()).all() or not torch.allclose(
             got.float(), want.float(), rtol=tol, atol=tol):
         raise AssertionError(f"{what}: max abs err {err} over tol {tol}")
+    return err
+
+
+def err_of_largest(what: str, got, want, bound: float) -> float:
+    """max |got - want| over max |want|; raises above ``bound`` or on a
+    value that is not finite."""
+    import torch
+    err = max_abs_err(got, want) / want.float().abs().max().item()
+    if not (torch.isfinite(got.float()).all() and err <= bound):
+        raise AssertionError(f"{what}: {err} of the largest, bound {bound}")
     return err
 
 
@@ -676,19 +696,19 @@ def _runner_line(argv) -> dict:
     return line
 
 
-def phase_main_path() -> dict:
-    """ResNet-50 native + 4-way share with the probe, LSTM case 5.1 and
-    the LM (infer, then decode) through the runner. Every launch counter
-    is set to 0 just before each path and read just after; returns each
-    kernel's launches summed over the paths."""
-    from k8s_device_plugin_torch import bench
+def _counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` its launches count."""
     from k8s_device_plugin_torch.monitor import dutyprobe
     from k8s_device_plugin_torch.workloads import flash, pallas_ops
+    return {"probe_chain": dutyprobe.probe_chain,
+            "lstm_cell": pallas_ops.lstm_cell,
+            "flash_absorb": flash.flash_absorb}
 
-    counters = {"probe_chain": dutyprobe.probe_chain,
-                "lstm_cell": pallas_ops.lstm_cell,
-                "flash_absorb": flash.flash_absorb}
-    by_path = {}
+
+def _counting(by_path: dict):
+    """``counted(path, fn)``: every launch counter set to 0 just before
+    ``fn()`` and read just after, into ``by_path[path]``."""
+    counters = _counters()
 
     def counted(path, fn):
         for c in counters.values():
@@ -696,6 +716,20 @@ def phase_main_path() -> dict:
         out = fn()
         by_path[path] = {name: c.launches for name, c in counters.items()}
         return out
+    return counted
+
+
+def phase_main_path() -> dict:
+    """ResNet-50 native + 4-way share with the probe, then the bench's
+    oversubscribe phase and duty check, LSTM case 5.1 and the LM (infer,
+    then decode) through the runner, and the train paths. Every launch
+    counter is set to 0 just before each path and read just after;
+    returns each kernel's launches by path."""
+    from k8s_device_plugin_torch import bench
+
+    counters = _counters()
+    by_path = {}
+    counted = _counting(by_path)
 
     def share():
         args = bench.parse_args([])
@@ -727,6 +761,23 @@ def phase_main_path() -> dict:
         raise AssertionError(f"{extra['hbm_limit_violations']} violations")
     if extra["probe"]["availability"] is None:
         raise AssertionError("the duty probe took no sample in the share")
+    # the bench's phases after the share: 10 replicas under
+    # VTPU_OVERSUBSCRIBE with a 64 MiB cap (their usage above it is spill,
+    # never a violation), then one child uncapped and one at a 50% duty
+    # cap, each charging the token bucket its calls' device time
+    over, duty = extra["oversubscribe"], extra["duty_check"]
+    emit("bench_oversubscribe", **over, cap_bytes=bench.OVERSUB_CAP_BYTES,
+         shape=list(bench.QUICK_TIER),
+         seconds=extra["phase_s"]["oversubscribe"])
+    if not (over["replicas"] == 10 and over["spill_bytes"] > 0
+            and over["violations"] == 0):
+        raise AssertionError(f"oversubscribe phase: {over}")
+    emit("bench_duty_check", **duty, band=list(bench.DUTY_BAND),
+         batch=extra["batch"], image_size=extra["image_size"],
+         seconds=extra["phase_s"]["duty_check"])
+    if not duty["within_band"]:
+        raise AssertionError(f"duty check: capped/uncapped {duty['ratio']} "
+                             f"outside {bench.DUTY_BAND}")
 
     line = counted("lstm_case_5_1",
                    lambda: _runner_line(["--model", "lstm"]))
@@ -786,16 +837,7 @@ def phase_main_path() -> dict:
     launches = {name: sum(p[name] for p in by_path.values())
                 for name in counters}
     emit("main_path_launches", **launches, by_path=by_path)
-    # each kernel must have run on the path that carries it
-    own = {"probe_chain": ["resnet50_share"],
-           "lstm_cell": ["lstm_case_5_1", "lstm_train"],
-           "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
-                            "moe_lm_train"]}
-    missing = [(name, path) for name, paths in own.items() for path in paths
-               if by_path[path][name] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on their path: "
-                             f"{missing}")
+    _check_own_paths(by_path)
     # launches a call: the LM trains on 12 absorbs (3 per layer at
     # 1024-token chunks), the MoE LM on one whole-sequence absorb a layer
     # to infer and to train; the LSTM one cell a time step; the runner
@@ -813,7 +855,99 @@ def phase_main_path() -> dict:
         if by_path[path][name] != n * calls:
             raise AssertionError(f"{path}: {by_path[path][name]} {name} "
                                  f"launches in {calls} calls, not {n} each")
-    return launches
+    return by_path
+
+
+def _check_own_paths(by_path: dict) -> None:
+    """Each kernel must have run on every path that carries it."""
+    own = {"probe_chain": ["resnet50_share"],
+           "lstm_cell": ["lstm_case_5_1", "lstm_train"],
+           "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
+                            "moe_lm_train", "multichip_ring_flash"]}
+    missing = [(name, path) for name, paths in own.items() for path in paths
+               if path in by_path and by_path[path][name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on their path: "
+                             f"{missing}")
+
+
+def phase_multichip_card() -> dict:
+    """``--multichip`` on the card: a world of one over NCCL, as the JAX
+    runner's mesh spans its one chip. The runner's ResNet-50 (infer at case
+    1.1, train at case 1.2; (dp, mp) = (1, 1)) and LM (infer 8 x 2048, train
+    4 x 2048; (dp, sp) = (1, 1), attention the ring's plain absorb, as
+    JAX's under a mesh) each print their line, and the first calls of each
+    path (the logits; two steps' losses) are held against the same path
+    without a mesh on the same weights at 2e-2 of the largest magnitude
+    (bf16, and cuDNN's algorithms may differ between two models). Then the
+    ring with ``use_flash`` at the LM's attention shape (8 x 2048, 8 heads
+    of 64, bf16, causal): its forward and its gradients in q, k, v
+    through K3 and the absorb's recompute backward against the ring's
+    plain absorb, at 2e-2 of the largest. Returns the K3 launches by path
+    (the comparisons' own runs are not counted)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, run
+    from k8s_device_plugin_torch.workloads.attention import ring_attention
+    by_path = {}
+    counted = _counting(by_path)
+    report = {}
+    t0 = time.perf_counter()
+    with run.world(torch.device("cuda")) as device:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("--multichip on the card is not on NCCL")
+        for model, mode in (("resnet50", "infer"), ("resnet50", "train"),
+                            ("lm", "infer"), ("lm", "train")):
+            argv = ["--model", model, "--mode", mode, "--steps", "3"]
+            path = f"multichip_{model}_{mode}"
+            t1 = time.perf_counter()
+            line = counted(path, lambda argv=argv: _runner_line(
+                argv + ["--multichip"]))
+            if not line["items_per_s"] > 0:
+                raise AssertionError(f"{path}: {line}")
+            calls = 2 if mode == "train" else 1
+            outs = []
+            for flags in ([], ["--multichip"]):
+                call, _, _ = run.build_call(run.parse_args(argv + flags),
+                                            device)
+                outs.append([call().float() for _ in range(calls)])
+                del call
+            errs = [err_of_largest(f"{path} against no mesh", got, want,
+                                   2e-2) for got, want in zip(*outs[::-1])]
+            report[path] = {"line": line, "err_vs_no_mesh": errs,
+                            "seconds": time.perf_counter() - t1}
+            emit(path, **line, err_vs_no_mesh=errs,
+                 world=torch.distributed.get_world_size(),
+                 seconds=report[path]["seconds"])
+        mesh = harness.device_mesh((1, 1), ("dp", "sp"))
+        group = mesh.get_group("sp")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v = (torch.randn(8, 2048, 8, 64, generator=g, device="cuda",
+                               dtype=torch.bfloat16).requires_grad_()
+                   for _ in range(3))
+
+        def ring(use_flash):
+            out = ring_attention(q, k, v, group, causal=True,
+                                 use_flash=use_flash)
+            grads = torch.autograd.grad(out.float().square().sum(),
+                                        (q, k, v))
+            return out, grads
+        got = counted("multichip_ring_flash", lambda: ring(True))
+        want = ring(False)
+        errs = {"out": err_of_largest("ring+flash", got[0], want[0], 2e-2)}
+        for name, gg, gw in zip("qkv", got[1], want[1]):
+            errs[f"d{name}"] = err_of_largest(f"ring+flash d{name}", gg, gw,
+                                              2e-2)
+        with torch.no_grad():
+            flash_ms = cuda_ms(lambda: ring_attention(
+                q, k, v, group, causal=True, use_flash=True), 10)
+            plain_ms = cuda_ms(lambda: ring_attention(
+                q, k, v, group, causal=True, use_flash=False), 5)
+        emit("multichip_ring_flash", shape=[8, 2048, 8, 64], errs=errs,
+             k3_launches=by_path["multichip_ring_flash"]["flash_absorb"],
+             ms=flash_ms, plain_ms=plain_ms)
+    emit("multichip_card", by_path=by_path,
+         seconds=time.perf_counter() - t0)
+    return by_path
 
 
 #: kernel families by name, for a profile's breakdown (first match wins)
@@ -1435,7 +1569,11 @@ def main() -> int:
                "flash_absorb": phase_flash_kernel()}
     attention = phase_flash_grad()
     phase_lstm_grad()
-    launches = phase_main_path()
+    by_path = phase_main_path()
+    by_path.update(phase_multichip_card())
+    _check_own_paths(by_path)
+    launches = {name: sum(p[name] for p in by_path.values())
+                for name in kernels}
     phase_lm_profile()
     phase_lm_train_profile(attention)
     phase_model_train_profiles()

@@ -1,8 +1,9 @@
 """The in-container env contract, as far as the port reads it.
 
 A copy of the constants the port needs from the JAX package's ``api.py``
-(the same names and values): the device plugin injects these at Allocate
-time, and the cooperative limiter reads them inside the container.
+(the same names and values), and of its ``gang_process_env``: the device
+plugin injects these at Allocate time, and the cooperative limiter and the
+multi-device dry run read them inside the container.
 """
 
 from __future__ import annotations
@@ -42,3 +43,35 @@ COMPILE_CACHE_MANIFEST_MAX_KEYS = 256
 # A vouched key older than this is presumed evicted from the cache: the
 # writer drops it on rewrite.
 COMPILE_CACHE_MANIFEST_MAX_AGE_S = 7 * 24 * 3600.0
+# Multi-process and multi-host (gang) identity: the process grid's and a
+# process's chip grid's bounds, which member this process is, and every
+# member's hostname in worker order.
+TPU_PROCESS_BOUNDS = "TPU_PROCESS_BOUNDS"
+TPU_CHIPS_PER_PROCESS_BOUNDS = "TPU_CHIPS_PER_PROCESS_BOUNDS"
+TPU_WORKER_ID = "TPU_WORKER_ID"
+TPU_WORKER_HOSTNAMES = "TPU_WORKER_HOSTNAMES"
+
+
+def _compact_grid(n: int) -> tuple[int, int]:
+    """Most-square a x b factorization of n (a >= b): how a member's chips
+    tile its local grid in the bounds strings."""
+    best = (n, 1)
+    for b in range(1, int(n ** 0.5) + 1):
+        if n % b == 0:
+            best = (n // b, b)
+    return best
+
+
+def gang_process_env(gang_size: int, worker_id: int, hostnames: list[str],
+                     chips_per_member: int) -> dict[str, str]:
+    """One gang member's process and worker identity, as the device plugin
+    renders it from the gang's placement: members striped along the
+    process grid's leading axis (one process per member host), each with a
+    most-square local chip grid; every member gets the same bounds."""
+    chips_a, chips_b = _compact_grid(max(1, chips_per_member))
+    return {
+        TPU_WORKER_ID: str(worker_id),
+        TPU_WORKER_HOSTNAMES: ",".join(hostnames),
+        TPU_PROCESS_BOUNDS: f"{max(1, gang_size)},1,1",
+        TPU_CHIPS_PER_PROCESS_BOUNDS: f"{chips_a},{chips_b},1",
+    }

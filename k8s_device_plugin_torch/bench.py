@@ -26,6 +26,7 @@ fallback.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -44,6 +45,12 @@ CHILD_TIMEOUT_S = float(os.environ.get("VTPU_BENCH_TIMEOUT", "600"))
 PROBE_INTERVAL_S = 0.25
 #: timed passes of ``--iters`` calls each child runs inside its window
 PASSES = 3
+#: the oversubscribe phase's shapes (the JAX bench's ``TIERS[0]``: batch,
+#: image size, iters) and cap
+QUICK_TIER = (8, 64, 3)
+OVERSUB_CAP_BYTES = 64 << 20
+#: the band the capped / uncapped img/s of the duty check must fall in
+DUTY_BAND = (0.35, 0.65)
 
 
 def parse_args(argv=None):
@@ -115,8 +122,61 @@ def _barrier_wait() -> None:
     sys.exit(3)
 
 
+def _metered(infer, limiter, device):
+    """``infer`` charged to the limiter's duty-cycle bucket, the
+    counterpart of the JAX bench's C wrapper, which meters each execution:
+    before each call, ``throttle`` takes the previous call's own device
+    time (CUDA events around it; on the CPU its wall time), so the call
+    waits until the bucket has refilled for it. A cost above the bucket's
+    capacity is charged in whole-capacity pieces (one such request would
+    never be granted)."""
+    from .shm.limiter import BUCKET_CAPACITY_US
+    cuda = device.type == "cuda"
+    last = None
+
+    def call(x):
+        nonlocal last
+        if last is not None:
+            if cuda:
+                last[1].synchronize()
+                cost_us = last[0].elapsed_time(last[1]) * 1e3
+            else:
+                cost_us = last
+            while cost_us > 0:
+                limiter.throttle(min(cost_us, BUCKET_CAPACITY_US))
+                cost_us -= BUCKET_CAPACITY_US
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = infer(x)
+            end.record()
+            last = (start, end)
+        else:
+            t0 = time.perf_counter()
+            out = infer(x)
+            last = (time.perf_counter() - t0) * 1e6
+        return out
+    return call
+
+
+def memory_accounting(limiter, cap: int, device) -> tuple[int, int, int]:
+    """(used, spill, violations) of a share child once its window is over:
+    used is the limiter's polled usage (``memory_reserved``). Under
+    ``VTPU_OVERSUBSCRIBE`` the cap is soft, so usage above it is spill and
+    no violation; otherwise the poll's violations count, plus one if the
+    allocator's peak ever passed the cap."""
+    limiter.poll_once()
+    used = limiter.region.device_used(0)
+    if limiter.region.data.oversubscribe:
+        return used, max(0, used - cap) if cap else 0, limiter.violations
+    peak_over = cap and device.type == "cuda" \
+        and torch.cuda.max_memory_reserved(device) > cap
+    return used, 0, limiter.violations + (1 if peak_over else 0)
+
+
 def child_main(args) -> int:
-    from .shm.limiter import CooperativeLimiter
+    from .shm.limiter import BUCKET_CAPACITY_US, CooperativeLimiter
     from .workloads import harness
     from .workloads.resnet import resnet50
 
@@ -137,11 +197,21 @@ def child_main(args) -> int:
     x = torch.ones(batch, size, size, 3, dtype=torch.bfloat16, device=device)
     infer = harness.make_infer_fn(model)
     flops = harness.count_flops(model, x) / batch  # also the first call
+    # a child under a core limit (the duty check pins one on both legs)
+    # meters every call; the others run unmetered
+    metered = limiter is not None and "VTPU_DEVICE_CORE_LIMIT" in os.environ
+    if metered:
+        infer = _metered(infer, limiter, device)
     logits = infer(x)
     if logits.shape != (batch, 1000) or not torch.isfinite(logits).all():
         raise SystemExit(f"bench child: bad logits {tuple(logits.shape)}")
     _compile_lock_release(lock_fd)
     _barrier_wait()
+    if metered:
+        # the bucket starts full, a burst of BUCKET_CAPACITY_US (0.2 s) of
+        # device time, more than a quick tier's window holds: drain it, so
+        # the timed window runs at the capped rate from its first call
+        limiter.throttle(BUCKET_CAPACITY_US)
     # warm already (count_flops and the check above ran the model twice);
     # wall-clock ends so the supervisor can line the windows up
     start = time.time()
@@ -149,14 +219,10 @@ def child_main(args) -> int:
             for _ in range(PASSES)]
     end = time.time()
 
-    used = violations = 0
+    used = spill = violations = 0
     cap = int(os.environ.get("VTPU_DEVICE_MEMORY_LIMIT_0", "0"))
     if limiter is not None:
-        limiter.poll_once()
-        violations = limiter.violations + (
-            1 if cap and torch.cuda.is_available()
-            and torch.cuda.max_memory_reserved(device) > cap else 0)
-        used = limiter.region.device_used(0)
+        used, spill, violations = memory_accounting(limiter, cap, device)
         limiter.uninstall()
     cuda = device.type == "cuda"
     images = batch * iters * PASSES
@@ -174,6 +240,7 @@ def child_main(args) -> int:
         "hbm_used_bytes": int(used),
         "hbm_cap_bytes": cap,
         "violations": violations,
+        "spill_bytes": int(spill),
         "flops_per_img": flops,
     }))
     return 0
@@ -209,14 +276,16 @@ def _child_env(extra: dict[str, str]) -> dict[str, str]:
 
 
 def _run_children(phase: str, args, envs: list[dict], workdir: str,
-                  during=None) -> list[dict]:
-    """Start one child per env, run ``during(stop_event)`` on a thread once
-    every child has passed the barrier, and return their JSON lines.
-    Raises if any child fails; kills the rest on the way out."""
+                  during=None, label: str | None = None) -> list[dict]:
+    """Start one ``phase`` child per env, run ``during(stop_event)`` on a
+    thread once every child has passed the barrier, and return their JSON
+    lines (their logs named by ``label``, default the phase). Raises if any
+    child fails; kills the rest on the way out."""
     procs = []
+    label = label or phase
     try:
         for i, extra in enumerate(envs):
-            log = open(os.path.join(workdir, f"{phase}{i}.stderr"), "w")
+            log = open(os.path.join(workdir, f"{label}{i}.stderr"), "w")
             procs.append((subprocess.Popen(
                 _child_cmd(phase, args), env=_child_env(extra),
                 stdout=subprocess.PIPE, stderr=log, text=True), log))
@@ -226,7 +295,7 @@ def _run_children(phase: str, args, envs: list[dict], workdir: str,
         deadline = time.time() + CHILD_TIMEOUT_S
         while any(p.poll() is None for p, _ in procs):
             if time.time() > deadline:
-                raise RuntimeError(f"bench: {phase} children exceeded "
+                raise RuntimeError(f"bench: {label} children exceeded "
                                    f"{CHILD_TIMEOUT_S:.0f}s")
             if during is not None and sampler is None and barrier and \
                     os.path.exists(barrier) and \
@@ -244,7 +313,7 @@ def _run_children(phase: str, args, envs: list[dict], workdir: str,
             if p.returncode != 0 or not stdout.strip():
                 with open(log.name) as f:
                     tail = f.read()[-3000:]
-                raise RuntimeError(f"bench: {phase} child {i} failed "
+                raise RuntimeError(f"bench: {label} child {i} failed "
                                    f"rc={p.returncode}:\n{tail}")
             outs.append(json.loads(stdout.strip().splitlines()[-1]))
         return outs
@@ -277,22 +346,84 @@ def run_native(args, workdir: str) -> dict:
     return aggregate(_run_children("native", args, [{}], workdir))
 
 
+def _share_envs(n: int, cap: int, workdir: str, prefix: str,
+                extra: dict | None = None) -> list[dict]:
+    """Envs of ``n`` share children, each with its own region and ``cap``,
+    warming up one at a time and timed together."""
+    sync = tempfile.mkdtemp(prefix=f"{prefix}-sync-", dir=workdir)
+    return [{
+        "VTPU_DEVICE_MEMORY_SHARED_CACHE": tempfile.mkdtemp(
+            prefix=f"{prefix}{i}-", dir=workdir),
+        "VTPU_DEVICE_MEMORY_LIMIT_0": str(cap),
+        "VTPU_BENCH_COMPILE_LOCK": os.path.join(sync, "compile.lock"),
+        "VTPU_BENCH_BARRIER": f"{os.path.join(sync, 'warm.barrier')}:{n}",
+        **(extra or {}),
+    } for i in range(n)]
+
+
 def run_share(args, total_bytes: int, workdir: str, during=None) -> dict:
     """N concurrent children, each with its own region and a cap of
     ``total_bytes // share``; returns their aggregate."""
     n = args.share_procs
-    sync = tempfile.mkdtemp(prefix="share-sync-", dir=workdir)
-    envs = [{
-        "VTPU_DEVICE_MEMORY_SHARED_CACHE": tempfile.mkdtemp(
-            prefix=f"share{i}-", dir=workdir),
-        "VTPU_DEVICE_MEMORY_LIMIT_0": str(total_bytes // args.share),
-        "VTPU_BENCH_COMPILE_LOCK": os.path.join(sync, "compile.lock"),
-        "VTPU_BENCH_BARRIER": f"{os.path.join(sync, 'warm.barrier')}:{n}",
-    } for i in range(n)]
+    envs = _share_envs(n, total_bytes // args.share, workdir, "share")
     agg = aggregate(_run_children("share", args, envs, workdir,
                                   during=during))
     agg["share_procs"] = n
     return agg
+
+
+def _pinned(args) -> bool:
+    return any(v is not None for v in (args.batch, args.image_size,
+                                       args.iters))
+
+
+def oversubscribe_result(replicas: int, outs: list[dict]) -> dict:
+    """The JAX bench's ``oversubscribe`` entry from the replicas' lines:
+    their spill and violations summed, and img/s over the shared window
+    (as the share's)."""
+    return {"replicas": replicas,
+            "spill_bytes": sum(o["spill_bytes"] for o in outs),
+            "violations": sum(o["violations"] for o in outs),
+            "img_per_s": aggregate(outs)["img_per_s"]}
+
+
+def run_oversubscribe(args, workdir: str) -> dict:
+    """``VTPU_BENCH_OVERSUB_REPLICAS`` (10) concurrent share children under
+    ``VTPU_OVERSUBSCRIBE=1`` with a cap of ``OVERSUB_CAP_BYTES``, which
+    the workload exceeds (spill above 0), at the quick tier unless the
+    caller pinned the shapes."""
+    targs = copy.copy(args)
+    if not _pinned(args):
+        targs.batch, targs.image_size, targs.iters = QUICK_TIER
+    n = int(os.environ.get("VTPU_BENCH_OVERSUB_REPLICAS", "10"))
+    envs = _share_envs(n, OVERSUB_CAP_BYTES, workdir, "osub",
+                       {"VTPU_OVERSUBSCRIBE": "1"})
+    return oversubscribe_result(
+        n, _run_children("share", targs, envs, workdir, label="osub"))
+
+
+def duty_result(uncapped: dict, capped: dict) -> dict:
+    """The JAX bench's ``duty_check`` entry from the two children's
+    lines."""
+    ratio = capped["img_per_s"] / uncapped["img_per_s"]
+    return {"uncapped_img_per_s": uncapped["img_per_s"],
+            "capped50_img_per_s": capped["img_per_s"],
+            "ratio": ratio,
+            "within_band": DUTY_BAND[0] <= ratio <= DUTY_BAND[1]}
+
+
+def run_duty_check(args, total_bytes: int, workdir: str) -> dict:
+    """One share child at ``VTPU_DEVICE_CORE_LIMIT=0`` and then one at
+    ``50``, alone on the device, at the bench's shapes. Both pin the limit
+    explicitly: a supervisor inside a capped container must not run the
+    "uncapped" leg at its inherited cap (``_child_env`` drops inherited
+    ``VTPU_*`` anyway)."""
+    legs = [_run_children(
+        "share", args, _share_envs(1, total_bytes // args.share, workdir,
+                                   f"duty{pct}-",
+                                   {"VTPU_DEVICE_CORE_LIMIT": str(pct)}),
+        workdir, label=f"duty{pct}-")[0] for pct in (0, 50)]
+    return duty_result(*legs)
 
 
 def probe_runner(device: str):
@@ -306,10 +437,20 @@ def probe_runner(device: str):
 
 
 def measure(args, workdir: str) -> dict:
-    """Native run, idle-card probe calibration, then the share with the
-    probe sampling beside it; returns the result line."""
+    """Native run, idle-card probe calibration, the share with the probe
+    sampling beside it, then the oversubscribe phase and the duty check;
+    returns the result line, with each phase's seconds under
+    ``extra.phase_s``."""
     from .monitor.dutyprobe import DutyProbe
-    native = run_native(args, workdir)
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    native = timed("native", run_native, args, workdir)
     runner = probe_runner(args.device)
     probe = DutyProbe(runner=runner)
     probe.calibrate()
@@ -320,11 +461,18 @@ def measure(args, workdir: str) -> dict:
             probe.maybe_sample()
             stop.wait(0.01)
 
-    share = run_share(args, native["total_bytes"], workdir, during=sample)
-    return assemble(args, native, share, probe, runner)
+    share = timed("share", run_share, args, native["total_bytes"], workdir,
+                  during=sample)
+    oversub = timed("oversubscribe", run_oversubscribe, args, workdir)
+    duty = timed("duty_check", run_duty_check, args, native["total_bytes"],
+                 workdir)
+    result = assemble(args, native, share, probe, runner, oversub, duty)
+    result["extra"]["phase_s"] = seconds
+    return result
 
 
-def assemble(args, native: dict, share: dict, probe, runner) -> dict:
+def assemble(args, native: dict, share: dict, probe, runner,
+             oversub: dict, duty: dict) -> dict:
     on_gpu = share["platform"] == "gpu"
     flops_img = native["flops_per_img"]
     achieved = share["img_per_s"] * flops_img
@@ -363,6 +511,8 @@ def assemble(args, native: dict, share: dict, probe, runner) -> dict:
                 "size": runner.size,
                 "steps": runner.steps,
             },
+            "oversubscribe": oversub,
+            "duty_check": duty,
         },
     }
 

@@ -31,6 +31,11 @@ from .region import KIND_BUFFER, Region
 
 log = logging.getLogger(__name__)
 
+#: the duty-cycle token bucket's capacity in device microseconds (the C
+#: shim's and the JAX limiter's): its burst, and the largest cost one
+#: ``throttle`` call can be granted
+BUCKET_CAPACITY_US = 200000
+
 
 def _env_true(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "on", "yes")
@@ -207,7 +212,7 @@ class CooperativeLimiter:
         if pct == 0 or pct >= 100:
             return 0.0
         slept = 0.0
-        cap = 200000
+        cap = BUCKET_CAPACITY_US
         while True:
             if data.recent_kernel < 0 and data.utilization_switch > 0:
                 time.sleep(0.002)

@@ -10,8 +10,13 @@ its state_dict key directly and only the leaf changes:
 * BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
   (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``,
   plus the ``num_batches_tracked`` counter PyTorch keeps;
-* anything else (the LSTM cell's ``wx``/``wh``/``b``, in [i|f|g|o] order)
-  as it is: the kernel takes the Flax layout.
+* anything else (the fused LSTM cell's ``wx``/``wh``/``b``, in [i|f|g|o]
+  order) as it is: the kernel takes the Flax layout.
+
+The stock LSTM layout's ``OptimizedLSTMCell_0.{ii,if,ig,io,hi,hf,hg,ho}``
+kernels are ``Dense`` kernels like any other, and the port's stock cell
+keeps that module name (``lstm.STOCK_CELL``), so both LSTM layouts carry
+across by the same rules.
 
 VGG-16's ``fc1`` needs no reordering: Flax flattens the NHWC activation,
 so its 25,088 rows run in (h, w, c) order, and the port flattens the

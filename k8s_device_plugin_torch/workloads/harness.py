@@ -1,15 +1,24 @@
 """Model set-up, inference, training and timing helpers for the port's
 workloads.
 
-Counterpart of the single-device part of
-``k8s_device_plugin_tpu/workloads/harness.py`` (``init_model``,
-``make_infer_fn``, ``cross_entropy``, ``seg_cross_entropy``,
-``make_train_fn``, ``init_train_state``, ``timed_warmup``, ``time_fn``,
-the compile cache's ``setup_compile_cache``, ``active_compile_cache_dir``
-and ``record_compile_cache_key``), with ``torch.cuda.synchronize`` where
-JAX waits with ``block_until_ready``. The JAX train state's ``params`` and
-``batch_stats`` live in the module, its ``opt_state`` in a ``torch.optim``
-optimizer. Meshes are not ported yet.
+Counterpart of ``k8s_device_plugin_tpu/workloads/harness.py``
+(``init_model``, ``make_infer_fn``, ``cross_entropy``,
+``seg_cross_entropy``, ``make_train_fn``, ``init_train_state``,
+``timed_warmup``, ``time_fn``; the meshes' ``make_mesh``,
+``make_mesh_3d``, ``state_shardings``, ``batch_shardings`` and
+``shard_train_step``; the compile cache's ``setup_compile_cache``,
+``active_compile_cache_dir`` and ``record_compile_cache_key``), with
+``torch.cuda.synchronize`` where JAX waits with ``block_until_ready``. The
+JAX train state's ``params`` and ``batch_stats`` live in the module, its
+``opt_state`` in a ``torch.optim`` optimizer.
+
+A mesh is a ``DeviceMesh`` over the process group's ranks (one rank per
+device) with the JAX axis names. JAX jits the global program over its
+shardings and lets XLA place the collectives; here every rank runs its
+own shard of it, and :func:`shard_model` puts in what XLA would: the
+batch's BatchNorm statistics summed over ``dp``, the column-sharded head's
+input and output collectives over ``mp``, and the gradients averaged over
+``dp``.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -116,6 +126,8 @@ def make_train_fn(model: nn.Module, optimizer: torch.optim.Optimizer,
         loss.backward()
         optimizer.step()
         return {"step": state["step"] + 1}, loss.detach()
+    # what shard_train_step shards (the JAX state's params and opt_state)
+    train_step.model, train_step.optimizer = model, optimizer
     return train_step
 
 
@@ -168,6 +180,155 @@ def time_fn(fn, *args, device, iters: int = 10, warmup: int = 2) -> float:
         fn(*args)
     synchronize(device)
     return (time.perf_counter() - t0) / iters
+
+
+# --------------------------------------------------------------- shardings
+
+def device_mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+    """A ``DeviceMesh`` of ``shape`` over the world's ranks, in rank order
+    (as JAX reshapes ``jax.devices()``), on the process group's devices:
+    the card under NCCL, the CPU under gloo."""
+    from torch.distributed.device_mesh import init_device_mesh
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def _world(n_devices: int | None) -> int:
+    n = dist.get_world_size()
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"a mesh of {n_devices} devices needs a world of "
+                         f"as many ranks; this one has {n}")
+    return n
+
+
+def make_mesh(n_devices: int | None = None, mp: int = 2):
+    """The (dp, mp) mesh over the world; ``mp`` falls back to 1 where it
+    does not divide the world."""
+    n = _world(n_devices)
+    mp = mp if n % mp == 0 and n >= mp else 1
+    return device_mesh((n // mp, mp), ("dp", "mp"))
+
+
+def make_mesh_3d(n_devices: int | None = None):
+    """The (dp, fsdp, mp) mesh of a cube host's three axes: mp and fsdp 2
+    each where the world's factors of 2 allow, dp the rest. As in JAX,
+    ``fsdp`` is a second replication axis: the batch rides dp only."""
+    n = _world(n_devices)
+    mp = 2 if n % 2 == 0 else 1
+    fsdp = 2 if (n // mp) % 2 == 0 and n // mp >= 2 else 1
+    return device_mesh((n // (mp * fsdp), fsdp, mp), ("dp", "fsdp", "mp"))
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size}, JAX's ``mesh.shape``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def _is_head(name: str) -> bool:
+    keys = name.split(".")
+    return "head" in keys or "classifier" in keys
+
+
+def state_shardings(mesh, model: nn.Module) -> dict:
+    """The partition spec of every entry of ``model.state_dict()``, as
+    JAX's ``PartitionSpec``: a tuple naming the mesh axis that splits each
+    tensor dim, or None, and ``()`` for a replicated tensor. The head's
+    (or classifier's) weight and bias split their output features over
+    ``mp`` where ``mp`` divides them (PyTorch's dim 0 is the Flax kernel's
+    last); everything else is replicated."""
+    shape = mesh_shape(mesh)
+    return {name: ("mp",) + (None,) * (t.dim() - 1)
+            if "mp" in shape and _is_head(name) and t.dim() >= 1
+            and t.shape[0] % shape["mp"] == 0
+            else () for name, t in model.state_dict().items()}
+
+
+def batch_shardings(mesh, batch: torch.Tensor) -> tuple:
+    """The batch's partition spec: its leading dim over ``dp`` when ``dp``
+    divides it, replicated otherwise (a small odd batch must degrade, not
+    fail)."""
+    shape = mesh_shape(mesh)
+    if "dp" in shape and batch.dim() >= 1 \
+            and batch.shape[0] % shape["dp"] == 0:
+        return ("dp",) + (None,) * (batch.dim() - 1)
+    return ()
+
+
+def local_shard(t: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            t = t.chunk(mesh_shape(mesh)[axis], dim=dim)[
+                mesh.get_local_rank(axis)]
+    return t
+
+
+def shard_model(model: nn.Module, mesh, batch: torch.Tensor) -> bool:
+    """Put ``model`` under the mesh's shardings, in place, for ``batch``
+    (the whole batch; every rank passes the same one); returns whether the
+    batch is split over ``dp``.
+
+    The head's sharded weight and bias become this rank's slices (the same
+    ``Parameter`` objects, so an optimizer built on the model still holds
+    them), and the head runs between :func:`collectives.copy_to` and
+    :func:`collectives.gather_from` over ``mp``, so every rank sees the
+    whole logits. With the batch split, every BatchNorm takes the whole
+    batch's statistics over ``dp``."""
+    from .collectives import copy_to, gather_from
+    from .resnet import BatchNorm
+    specs = state_shardings(mesh, model)
+    sharded = set()
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) \
+                + list(model.named_buffers()):
+            if specs[name]:
+                t.data = local_shard(t.data, mesh, specs[name]).clone()
+                sharded.add(name.rpartition(".")[0])
+    if sharded:
+        group = mesh.get_group("mp")
+    for name in sharded:
+        head = model.get_submodule(name)
+        dim = 1 if isinstance(head, nn.Conv2d) else -1  # NCHW or [..., C]
+        head.register_forward_pre_hook(
+            lambda mod, args: (copy_to(args[0], group),) + args[1:])
+        head.register_forward_hook(
+            lambda mod, args, out, dim=dim: gather_from(out, group, dim))
+    split = bool(batch_shardings(mesh, batch))
+    if split:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = mesh.get_group("dp")
+    return split
+
+
+def shard_train_step(train_step, mesh, state: dict, batch: torch.Tensor,
+                     labels: torch.Tensor):
+    """(step, state, batch, labels) for this rank, from a
+    :func:`make_train_fn` step and the whole batch: the model under
+    :func:`shard_model`, this rank's shard of the batch and labels, and a
+    step that computes the unsharded step's update. The loss of a split
+    batch is the mean of the ranks' means over ``dp`` (equal shards), so
+    the gradients are averaged over ``dp`` before the optimizer steps, and
+    the step returns the loss averaged the same way. Dropout draws each
+    rank's masks for its own shard."""
+    from .collectives import sum_grads
+    model, optimizer = train_step.model, train_step.optimizer
+    split = shard_model(model, mesh, batch)
+    batch = local_shard(batch, mesh, batch_shardings(mesh, batch))
+    labels = local_shard(labels, mesh, batch_shardings(mesh, labels))
+    if not split:
+        return train_step, state, batch, labels
+    group = mesh.get_group("dp")
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    optimizer.register_step_pre_hook(
+        lambda opt, args, kwargs: sum_grads(params, group, average=True))
+
+    def step(state, batch, labels):
+        state, loss = train_step(state, batch, labels)
+        loss = loss.clone()
+        dist.all_reduce(loss, group=group)
+        return state, loss / dist.get_world_size(group)
+    return step, state, batch, labels
 
 
 # -------------------------------------------------- persistent compile cache

@@ -83,21 +83,51 @@ class BatchNorm(nn.BatchNorm2d):
     """Flax's ``nn.BatchNorm(momentum=0.9)``: in training it normalizes
     with the batch statistics and moves the running ones a tenth of the
     way to the batch mean and the BIASED batch variance; in eval it is
-    ``nn.BatchNorm2d``."""
+    ``nn.BatchNorm2d``.
+
+    When the batch is split over the ranks of ``group`` (set by
+    ``harness.shard_model``), the statistics are those of the whole batch,
+    as in JAX's sharded step, which is the global program: the
+    per-channel sums of x and x² (in fp32, or fp64 for fp64 inputs) are
+    summed over ``group`` through a differentiable all-reduce, and the
+    variance is E[x²] - E[x]², Flax's fast variance. (``nn.SyncBatchNorm``
+    runs on CUDA tensors only.)"""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS, momentum=0.1)
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._global_batch_norm(x)
         # the batch statistics come back as mean and 1 / sqrt(var + eps)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(invstd.pow(-2) - self.eps, self.momentum)
+        self._update_running(mean, invstd.pow(-2) - self.eps)
         return y
+
+    @torch.no_grad()
+    def _update_running(self, mean, var) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from .collectives import all_reduce_sum
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = x.numel() // x.shape[1] \
+            * torch.distributed.get_world_size(self.group)
+        sums = all_reduce_sum(torch.stack([x32.sum((0, 2, 3)),
+                                           (x32 * x32).sum((0, 2, 3))]),
+                              self.group) / count
+        mean = sums[0]
+        var = torch.clamp_min(sums[1] - mean * mean, 0.0)
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(x32.dtype)
+        y = (x32 - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias.to(x32.dtype)[:, None, None]
+        return y.to(x.dtype)
 
 
 class BottleneckV2(nn.Module):

@@ -167,9 +167,17 @@ def test_init_is_seeded_shaped_and_validated():
 
 
 def test_sequence_parallelism_is_not_yet_ported():
+    """The LM's sequence parallelism is ported (``test_torch_seqpar.py``
+    holds it against JAX's); what stays refused is the MoE LM over a mesh
+    (its expert parallelism), and without a mesh ``seq_mode`` changes
+    nothing, as in JAX."""
     _, model = _models()
     tokens = torch.from_numpy(_tokens())
+    torch.testing.assert_close(
+        tatt.lm_forward(model, tokens, seq_mode="ulysses"),
+        tatt.lm_forward(model, tokens), rtol=0, atol=0)
+    from k8s_device_plugin_torch.workloads import moe as tmoe
+    moe = tmoe.init_moe_lm_params(torch.Generator().manual_seed(0), 16, 8,
+                                  2, 1, n_experts=2, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tatt.lm_forward(model, tokens, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tatt.lm_forward(model, tokens, seq_mode="ulysses")
+        tmoe.moe_lm_forward(moe, tokens % 16, mesh=object())

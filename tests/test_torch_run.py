@@ -26,35 +26,18 @@ def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def _small_jax_models(monkeypatch):
-    """The JAX runner only gives the keys to compare, and they depend on
-    neither depth nor width: its ResNet-50 keeps one bottleneck and its
-    LSTM 16 hidden units (at full size their steps cost the CPU tens of
-    seconds)."""
-    from k8s_device_plugin_tpu.workloads import resnet as jresnet
-    from k8s_device_plugin_tpu.workloads.lstm import LSTMClassifier
-    build = jrun.build_model
-
-    def small(name, dtype, on_tpu=False):
-        if name == "lstm":
-            return LSTMClassifier(hidden=16, dtype=dtype, use_pallas=on_tpu)
-        return build(name, dtype, on_tpu=on_tpu)
-    monkeypatch.setitem(jresnet.DEPTHS, 50, (1, 0, 0, 0))
-    monkeypatch.setattr(jrun, "build_model", small)
-
-
 def test_runner_prints_the_jax_runners_keys(monkeypatch, capsys):
+    """The LSTM's line: the keys of the JAX runner's line, which one
+    ``_bench_loop`` prints for every model but the LMs (read once from
+    its small DeepLab, ``_jax_conv_model_keys``)."""
     monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", "lstm", "--batch", "2", "--size", "8", "--steps", "1"]
-    with monkeypatch.context() as patch:
-        _small_jax_models(patch)
-        assert jrun.main(tiny) == 0
-    want = _last_json(capsys)
+    want = _jax_conv_model_keys("infer")
     before = _lstm_launches()
     assert trun.main(tiny + ["--device", "cpu"]) == 0
     got = _last_json(capsys)
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == want
     assert (got["model"], got["mode"], got["batch"]) == ("lstm", "infer", 2)
     assert got["hbm_violations"] == 0
     assert _lstm_launches() == before  # the CPU ran the plain version
@@ -111,25 +94,28 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
 @pytest.mark.parametrize("model", ["lm", "resnet50", "lstm"])
 def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
                                                  capsys):
-    """--mode train at tiny sizes: the JAX runner's keys (from its small
-    models), the train batch when --batch is not given (the LM's 4), and
-    no kernel launched on the CPU."""
+    """--mode train at tiny sizes: the JAX runner's keys (the LM's from
+    its LM runner, the others' from ``_jax_conv_model_keys``), the train
+    batch when --batch is not given (the LM's 4), and no kernel launched
+    on the CPU."""
     monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", model, "--mode", "train", "--size", "16", "--steps",
             "1"] + (["--batch", "2"] if model != "lm" else [])
-    with monkeypatch.context() as patch:
-        _small_jax_models(patch)
+    if model == "lm":
         assert jrun.main(tiny) == 0
-    want = _last_json(capsys)
+        want = _last_json(capsys)
+        assert want["batch"] == trun.CASES["lm"][1]
+        want = sorted(want)
+    else:
+        want = _jax_conv_model_keys("train")
     from k8s_device_plugin_torch.workloads.flash import flash_absorb
     before = (flash_absorb.launches, _lstm_launches())
     assert trun.main(tiny + ["--device", "cpu"]) == 0
     got = _last_json(capsys)
-    assert sorted(got) == sorted(want)
+    assert sorted(got) == want
     assert (got["model"], got["mode"]) == (model, "train")
-    assert got["batch"] == want["batch"] == (
-        trun.CASES["lm"][1] if model == "lm" else 2)
+    assert got["batch"] == (trun.CASES["lm"][1] if model == "lm" else 2)
     assert got["items_per_s"] > 0
     if model == "lm":
         assert (got["seq"], got["sp"]) == (16, 1) and got["tokens_per_s"] > 0
@@ -226,15 +212,58 @@ def test_runner_runs_vgg16_and_deeplab_with_the_jax_runners_keys(
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "lm", "--multichip"],
-    ["--model", "resnet50", "--multichip"],
-    ["--model", "vgg16", "--mode", "train", "--multichip"],
     ["--model", "moe-lm", "--multichip"],
-    ["--model", "lstm", "--multichip"],
+    ["--model", "moe-lm", "--mode", "train", "--multichip"],
 ])
 def test_runner_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         trun.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv,rel", [
+    (["--model", "lm", "--batch", "2", "--size", "16"], 2e-2),
+    (["--model", "lm", "--mode", "train", "--batch", "2", "--size", "16"],
+     2e-2),
+    (["--model", "resnet50", "--batch", "2", "--size", "32"], 1e-6),
+    (["--model", "vgg16", "--mode", "train", "--batch", "1", "--size",
+      "32"], 2e-2),
+    (["--model", "lstm", "--batch", "2", "--size", "8"], 1e-6),
+])
+def test_runner_runs_multichip_at_world_one(argv, rel, capsys):
+    """--multichip on the CPU without a launcher: a world of one over gloo,
+    (dp, mp) = (1, 1) for the convolutional models and the LSTM, (dp, sp)
+    = (1, 1) for the LM, whose attention is then the ring's plain absorb.
+    The runner prints its line, and one call of the path (the logits to
+    infer, two steps' losses to train) matches the same path without a
+    mesh on the same weights: the same arithmetic for the convolutional
+    models and the LSTM to infer (1e-6); in bf16, at the repo's bf16 bound
+    of 2e-2 of the largest magnitude, where the LM attends through the
+    ring's absorb in place of dense attention and, to train, BatchNorm
+    takes the batch's statistics through the sum over dp."""
+    argv = argv + ["--steps", "1", "--device", "cpu"]
+    assert trun.main(argv + ["--multichip"]) == 0
+    line = _last_json(capsys)
+    assert line["items_per_s"] > 0 and line["hbm_violations"] == 0
+    if "lm" in argv:
+        assert line["sp"] == 1
+    assert not torch.distributed.is_initialized()
+    calls = 2 if "train" in argv else 1
+    want_call, _, _ = trun.build_call(trun.parse_args(argv),
+                                      torch.device("cpu"))
+    want = [want_call() for _ in range(calls)]
+    with trun.world(torch.device("cpu")) as device:
+        got_call, _, _ = trun.build_call(
+            trun.parse_args(argv + ["--multichip"]), device)
+        got = [got_call() for _ in range(calls)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=rel,
+                                   atol=rel * w.float().abs().max().item())
+
+
+def test_runner_refuses_decode_across_devices():
+    with pytest.raises(SystemExit, match="single-device"):
+        trun.main(["--model", "lm", "--mode", "decode", "--multichip",
+                   "--device", "cpu"])
 
 
 def test_runner_refuses_decode_for_a_model_without_a_cache():
@@ -259,6 +288,7 @@ def test_entry_defaults_to_cuda_and_runs_on_the_cpu_when_asked():
 def test_bench_assembles_the_share_result(tmp_path, monkeypatch):
     # the bench's child processes inherit the environment: one thread each
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("VTPU_BENCH_OVERSUB_REPLICAS", "1")
     args = tbench.parse_args(["--device", "cpu", "--batch", "1",
                               "--image-size", "32", "--iters", "3",
                               "--share-procs", "2", "--share", "2"])
@@ -276,6 +306,14 @@ def test_bench_assembles_the_share_result(tmp_path, monkeypatch):
     assert extra["platform"] == "cpu" and extra["mfu"] == 0.0
     assert 0.0 < extra["probe"]["availability"] <= 1.0
     assert extra["probe"]["samples"] >= 1
+    # the oversubscribe phase at the pinned shapes (no device memory to
+    # spill on the CPU) and the duty check's two legs
+    assert extra["oversubscribe"]["replicas"] == 1
+    assert extra["oversubscribe"]["violations"] == 0
+    assert extra["oversubscribe"]["img_per_s"] > 0
+    duty = extra["duty_check"]
+    assert duty["ratio"] == pytest.approx(duty["capped50_img_per_s"]
+                                          / duty["uncapped_img_per_s"])
 
 
 def test_runner_defaults_to_the_card(monkeypatch):

@@ -50,6 +50,18 @@ Phases, one JSON line each; any failure exits non-zero:
    ``use_flash`` through K3 at the LM's shape, forward and gradients
    against the ring's plain absorb (one card cannot hold a multi-rank NCCL
    group: the multi-rank legs are checked on CPU ranks in the tests);
+   then ``moe-lm --multichip`` in ``--mode infer`` (8 x 2048) and
+   ``train`` (4 x 2049) at full width on a (1, 1) (dp, sp) mesh
+   (``multichip_moe``), each against the oracle with the mesh's block
+   boundaries (``moe_lm_forward`` / ``moe_lm_loss`` without a mesh,
+   ``shard_shape=(1, 1)``), the logits on the positions routed alike and
+   in fp32 too, and the same forward with ``use_flash`` (K3 in the ring,
+   one launch a layer); the pipeline's loss and gradients at world 1
+   against its sequential reference (``pipeline_card``); and a checkpoint
+   of ResNet-50's train state at case 1.2 under ``shard_train_step``,
+   saved, restored into a fresh model and resumed, bit-equal and on the
+   same losses, with the bytes and seconds it took
+   (``checkpoint_card``);
 13. the LM's forward, decode step and train step, a train step of
    ResNet-50 (case 1.2) and of the LSTM (case 5.2), and the MoE LM's
    forward and train step, under torch.profiler: device time by kernel
@@ -863,7 +875,8 @@ def _check_own_paths(by_path: dict) -> None:
     own = {"probe_chain": ["resnet50_share"],
            "lstm_cell": ["lstm_case_5_1", "lstm_train"],
            "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
-                            "moe_lm_train", "multichip_ring_flash"]}
+                            "moe_lm_train", "multichip_ring_flash",
+                            "multichip_moe_lm_ring_flash"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if path in by_path and by_path[path][name] <= 0]
     if missing:
@@ -948,6 +961,312 @@ def phase_multichip_card() -> dict:
     emit("multichip_card", by_path=by_path,
          seconds=time.perf_counter() - t0)
     return by_path
+
+
+def _routes(fn):
+    """(``fn()``, the expert each token took in each layer): from the
+    dispatch ``moe._route`` returns, the expert whose slot the token holds,
+    or -1 for a token past its expert's capacity (dropped), one flat
+    tensor of the tokens' decisions a layer (batch-major, with or without
+    a mesh of one)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import moe
+    taken, route = [], moe._route
+
+    def recording(x, gate_w, n_experts, capacity):
+        out = route(x, gate_w, n_experts, capacity)
+        held = out[0].sum(-1)                                 # [..., N, E]
+        taken.append(torch.where(held.sum(-1) > 0, held.argmax(-1), -1)
+                     .reshape(-1))
+        return out
+    moe._route = recording
+    try:
+        return fn(), taken
+    finally:
+        moe._route = route
+
+
+def _held_routed_alike(what: str, got_fn, want_fn, bound: float) -> dict:
+    """Logits [B, T, V] of ``got_fn()`` against ``want_fn()`` at ``bound``
+    of the largest, on every position whose decision (:func:`_routes`)
+    agrees in every layer. A near-tie of the gate (bf16 logits tie
+    exactly) flips a decision on a rounding difference upstream; the
+    flipped token then takes another function's output (O(1) apart), and
+    its expert's queue shifts, so another token may cross the capacity
+    and be dropped: those positions are counted, not compared."""
+    import torch
+    got, got_routes = _routes(got_fn)
+    want, want_routes = _routes(want_fn)
+    alike = torch.stack([a == b for a, b in zip(got_routes,
+                                                want_routes)]).all(0)
+    vocab = want.shape[-1]
+    got, want = got.float().reshape(-1, vocab), want.float().reshape(-1,
+                                                                     vocab)
+    scale = want.abs().max().item()
+    err = max_abs_err(got[alike], want[alike]) / scale
+    if not (torch.isfinite(got).all() and err <= bound):
+        raise AssertionError(f"{what}: {err} of the largest on the "
+                             f"positions routed alike, bound {bound}")
+    return {"err_routed_alike": err, "err_all": max_abs_err(got, want)
+            / scale, "flips_by_layer": [int((a != b).sum()) for a, b in
+                                        zip(got_routes, want_routes)],
+            "positions": alike.numel(),
+            "positions_routed_apart": int((~alike).sum())}
+
+
+def _moe_lm_oracle(call, steps: int = 0):
+    """What the runner's ``moe-lm --multichip`` ``call`` at world 1 gives,
+    from the oracle with the mesh's block boundaries: ``moe_lm_forward`` /
+    ``moe_lm_loss`` without a mesh and with ``shard_shape=(1, 1)`` (one
+    routing group, dense attention) on a copy of the weights ``call``
+    starts from; the logits, or with ``steps`` the losses of as many steps
+    of the same plain SGD."""
+    import copy
+
+    import torch
+    from k8s_device_plugin_torch.workloads import harness
+    from k8s_device_plugin_torch.workloads.moe import (moe_lm_forward,
+                                                       moe_lm_loss)
+    model, tokens = copy.deepcopy(call.model), call.tokens
+    if not steps:
+        with torch.inference_mode():
+            return moe_lm_forward(model, tokens, shard_shape=(1, 1))[0]
+    optimizer = harness.sgd(model, momentum=0.0)
+    out = []
+    for _ in range(steps):
+        optimizer.zero_grad(set_to_none=True)
+        loss = moe_lm_loss(model, tokens, shard_shape=(1, 1))
+        loss.backward()
+        optimizer.step()
+        out.append(loss.detach())
+    return out
+
+
+def phase_multichip_moe(device: str = "cuda") -> dict:
+    """``moe-lm --multichip`` on the card, a world of one over NCCL: the
+    runner's ``--mode infer`` (8 x 2048) and ``--mode train`` (4 x 2049) at
+    full width (``LM_CONFIG``, 8 experts of hidden 2048, bf16) on a (dp,
+    sp) = (1, 1) mesh, attention the ring's plain absorb and one routing
+    group of the rank's whole block (a [16384, 8, 2560] fp32 dispatch
+    tensor a layer to infer, as JAX's), each printing its line; the first
+    calls against the oracle with the mesh's block boundaries
+    (:func:`_moe_lm_oracle`): two steps' losses at 2e-2, the logits at 2e-2
+    of the largest on the positions routed alike in every layer
+    (:func:`_held_routed_alike`; bf16 gate logits tie), and the same
+    forward in fp32 (TF32 off) at 1e-4 of the largest, PR 5's fp32 bound.
+    Then the same forward with ``use_flash`` (K3 in the ring, one absorb a
+    layer) against ``use_flash=False``, at 2e-2 on the positions routed
+    alike. Returns the launches by path (the comparisons' own runs are not
+    counted). ``device="cpu"`` rehearses the phase on a gloo world of
+    one."""
+    import copy
+
+    import torch
+    from k8s_device_plugin_torch.workloads import run
+    from k8s_device_plugin_torch.workloads.attention import seq_shard
+    from k8s_device_plugin_torch.workloads.moe import moe_lm_forward
+    by_path = {}
+    counted = _counting(by_path)
+    t0 = time.perf_counter()
+    with run.world(torch.device(device)) as device:
+        if device.type == "cuda" and \
+                torch.distributed.get_backend() != "nccl":
+            raise AssertionError("--multichip on the card is not on NCCL")
+        for mode in ("infer", "train"):
+            argv = ["--model", "moe-lm", "--mode", mode, "--steps", "3",
+                    "--multichip", "--device", device.type]
+            path = f"multichip_moe_lm_{mode}"
+            t1 = time.perf_counter()
+            line = counted(path, lambda argv=argv: _runner_line(argv))
+            if not (line["tokens_per_s"] > 0 and line["sp"] == 1):
+                raise AssertionError(f"{path}: {line}")
+            call, _, _ = run.build_call(run.parse_args(argv), device)
+            if mode == "train":
+                want = _moe_lm_oracle(call, steps=2)
+                got = [call() for _ in range(2)]
+                errs = [err_of_largest(f"{path} against the oracle", g, w,
+                                       2e-2) for g, w in zip(got, want)]
+            else:
+                errs = {"bfloat16": _held_routed_alike(
+                    f"{path} against the oracle", call,
+                    lambda: _moe_lm_oracle(call), 2e-2)}
+                model = copy.deepcopy(call.model).float()
+                tokens, mesh = call.tokens, call.mesh
+                with no_tf32(), torch.inference_mode():
+                    errs["float32"] = _held_routed_alike(
+                        f"{path} in fp32 against the oracle",
+                        lambda: moe_lm_forward(model, seq_shard(tokens, mesh),
+                                               mesh)[0],
+                        lambda: moe_lm_forward(model, tokens,
+                                               shard_shape=(1, 1))[0], 1e-4)
+                del model
+            emit(path, **line, err_vs_oracle=errs,
+                 world=torch.distributed.get_world_size(),
+                 seconds=time.perf_counter() - t1)
+            del call
+        call, _, _ = run.build_call(run.parse_args(
+            ["--model", "moe-lm", "--mode", "infer", "--multichip",
+             "--device", device.type]), device)
+        model, mesh = call.model, call.mesh
+        tokens = seq_shard(call.tokens, mesh)
+
+        def forward(use_flash):
+            with torch.inference_mode():
+                return moe_lm_forward(model, tokens, mesh,
+                                      use_flash=use_flash)[0]
+        err = _held_routed_alike(
+            "moe-lm ring+flash", lambda: counted(
+                "multichip_moe_lm_ring_flash", lambda: forward(True)),
+            lambda: forward(False), 2e-2)
+        flash_ms = cuda_ms(lambda: forward(True), 3)
+        plain_ms = cuda_ms(lambda: forward(False), 3)
+        emit("multichip_moe_lm_ring_flash", shape=list(tokens.shape),
+             err_vs_plain_ring=err,
+             k3_launches=by_path["multichip_moe_lm_ring_flash"][
+                 "flash_absorb"], ms=flash_ms, plain_ms=plain_ms)
+    # the mesh path attends through the ring's plain absorb, as JAX's; K3
+    # runs once a layer in the ring with use_flash
+    launches = {path: counts["flash_absorb"]
+                for path, counts in by_path.items()}
+    want = {"multichip_moe_lm_infer": 0, "multichip_moe_lm_train": 0,
+            "multichip_moe_lm_ring_flash": run.LM_CONFIG[3]}
+    if launches != want:
+        raise AssertionError(f"K3 launches {launches}, not {want}")
+    emit("multichip_moe", by_path=by_path, seconds=time.perf_counter() - t0)
+    return by_path
+
+
+def phase_pipeline_card(device: str = "cuda") -> None:
+    """The pipeline on the card at world 1 over NCCL, on a (dp, pp) =
+    (1, 1) mesh at the dry run's shapes (dim 16, hidden 32, microbatches
+    [2 pp - 1, 2 dp, 16]): ``pipeline_loss`` and its gradients against
+    ``pipeline_reference``'s MSE in full fp32 (``no_tf32``) at 1e-5. The
+    repo has no wider pipeline configuration."""
+    import torch
+    from k8s_device_plugin_torch.workloads import harness, run
+    from k8s_device_plugin_torch.workloads.pipeline import (
+        init_stage_params, pipeline_loss, pipeline_reference)
+    g = torch.Generator().manual_seed(0)
+    with run.world(torch.device(device)), no_tf32():
+        mesh = harness.device_mesh((1, 1), ("dp", "pp"))
+        params = init_stage_params(g, 1, 16, 32, device=device)
+        ref = init_stage_params(torch.Generator().manual_seed(0), 1, 16, 32,
+                                device=device)
+        harness.shard_params(params, mesh)
+        x, tgt = (torch.randn(1, 2, 16, generator=g).to(device)
+                  for _ in range(2))
+        loss = pipeline_loss(params, x, tgt, mesh)
+        loss.backward()
+        harness.sum_replica_grads(params, mesh)
+        want = ((pipeline_reference(ref, x) - tgt) ** 2).mean()
+        want.backward()
+        errs = {"loss": check_close("pipeline loss", loss, want, 1e-5)}
+        for name in ("w_in", "w_out"):
+            errs[name] = check_close(f"pipeline d{name}",
+                                     getattr(params, name).grad,
+                                     getattr(ref, name).grad, 1e-5)
+    emit("pipeline_card", shape=[1, 2, 16], hidden=32, loss=loss.item(),
+         max_abs_err=errs)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_checkpoint_card(device: str = "cuda") -> None:
+    """Checkpoint and resume of the runner's ResNet-50 train state at case
+    1.2 (20 @ 346, fp32 master weights, bf16 compute, SGD-momentum 0.9 at
+    1e-3) under ``shard_train_step`` on a (dp, mp) = (1, 1) mesh, a world of
+    one over NCCL: 2 steps, a save, 2 more steps (the reference losses);
+    then a fresh model and optimizer, sharded, restored, and 2 steps,
+    within rtol 1e-5 of the reference; every restored tensor (parameters,
+    BatchNorm statistics, momentum buffers) equal bit for bit to the saved
+    one, and a restore without a mesh equal to it leaf by leaf. cuDNN runs
+    deterministic, its algorithms chosen without search, for this phase
+    only: two models' searches may pick different algorithms. Prints the
+    bytes written and the seconds to save and to restore."""
+    import torch
+    from k8s_device_plugin_torch.workloads import checkpoint, harness, run
+    batch, size = run.CASES["resnet50"][1], run.CASES["resnet50"][2]
+    x = torch.ones(batch, size, size, 3, dtype=torch.bfloat16,
+                   device=device)
+    labels = torch.zeros(batch, dtype=torch.long, device=device)
+    saved_flags = (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def fresh(mesh):
+        model = harness.init_model(run.build_model(
+            "resnet50", torch.bfloat16, size, train=True), 0, device)
+        optimizer = harness.sgd(model)
+        step = harness.make_train_fn(model, optimizer)
+        step, state, xs, ls = harness.shard_train_step(
+            step, mesh, harness.init_train_state(model), x, labels)
+        return model, optimizer, step, state, xs, ls
+
+    def train(step, state, xs, ls, n):
+        losses = []
+        for _ in range(n):
+            state, loss = step(state, xs, ls)
+            losses.append(loss.item())
+        return state, losses
+
+    def tensors(model, optimizer):
+        out = {f"model.{k}": v.clone() for k, v in
+               model.state_dict().items()}
+        out.update({f"optim.{k}": optimizer.state[p]["momentum_buffer"]
+                    .clone() for k, p in model.named_parameters()})
+        return out
+    try:
+        with run.world(torch.device(device)), \
+                tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+            mesh = harness.make_mesh()
+            model, optimizer, step, state, xs, ls = fresh(mesh)
+            state, _ = train(step, state, xs, ls, 2)
+            saved = tensors(model, optimizer)
+            path = os.path.join(d, "ckpt")
+            harness.synchronize(device)
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(path, model, optimizer, state, mesh)
+            save_s = time.perf_counter() - t0
+            _, ref = train(step, state, xs, ls, 2)
+            del model, optimizer, step
+            model, optimizer, step, _, xs, ls = fresh(mesh)
+            t0 = time.perf_counter()
+            state = checkpoint.restore_checkpoint(path, model, optimizer,
+                                                  mesh)
+            harness.synchronize(device)
+            restore_s = time.perf_counter() - t0
+            restored = tensors(model, optimizer)
+            if state != {"step": 2} or sorted(restored) != sorted(saved):
+                raise AssertionError(f"restored {state}, "
+                                     f"{len(restored)} tensors")
+            differ = [k for k in saved if not torch.equal(saved[k],
+                                                          restored[k])]
+            if differ:
+                raise AssertionError(f"restored tensors differ: {differ}")
+            _, got = train(step, state, xs, ls, 2)
+            rel = [abs(g - w) / abs(w) for g, w in zip(got, ref)]
+            if max(rel) > 1e-5:
+                raise AssertionError(f"resumed losses {got} against {ref}")
+            whole = run.build_model("resnet50", torch.bfloat16, size,
+                                    train=True).to(device)
+            whole_opt = harness.sgd(whole)
+            checkpoint.restore_checkpoint(path, whole, whole_opt)
+            differ = [k for k, v in tensors(whole, whole_opt).items()
+                      if not torch.equal(v, saved[k])]
+            if differ:
+                raise AssertionError(f"no-mesh restore differs: {differ}")
+            written = _dir_bytes(path)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved_flags
+    emit("checkpoint_card", batch=batch, image_size=size,
+         tensors=len(saved), bytes_written=written, save_s=save_s,
+         restore_s=restore_s, losses=got, reference_losses=ref,
+         loss_rel_err=rel)
 
 
 #: kernel families by name, for a profile's breakdown (first match wins)
@@ -1271,26 +1590,14 @@ def _moe_correctness() -> dict:
     model = copy.deepcopy(ref).to("cuda")
     tokens = torch.randint(0, vocab, (2, 64),
                            generator=torch.Generator().manual_seed(1))
-    decisions = {"cpu": [], "cuda": []}
-    route = moe._route
-
-    def recording(x, gate_w, n_experts, capacity):
-        decisions[x.device.type].append(
-            torch.softmax((x @ gate_w).float(), -1).argmax(-1).cpu())
-        return route(x, gate_w, n_experts, capacity)
-    moe._route = recording
-    try:
-        with no_tf32(), torch.inference_mode():
-            want, aux_want = moe.moe_lm_forward(ref, tokens, use_flash=True,
-                                                shard_shape=(2, 2))
-            got, aux_got = moe.moe_lm_forward(model, tokens.to("cuda"),
-                                              use_flash=True,
-                                              shard_shape=(2, 2))
-    finally:
-        moe._route = route
-    flips = sum(int((a != b).sum()) for a, b in zip(decisions["cpu"],
-                                                    decisions["cuda"]))
-    n_decisions = sum(d.numel() for d in decisions["cpu"])
+    with no_tf32(), torch.inference_mode():
+        (want, aux_want), cpu_routes = _routes(lambda: moe.moe_lm_forward(
+            ref, tokens, use_flash=True, shard_shape=(2, 2)))
+        (got, aux_got), card_routes = _routes(lambda: moe.moe_lm_forward(
+            model, tokens.to("cuda"), use_flash=True, shard_shape=(2, 2)))
+    flips = sum(int((a != b.cpu()).sum()) for a, b in zip(cpu_routes,
+                                                          card_routes))
+    n_decisions = sum(d.numel() for d in cpu_routes)
     emit("moe_lm_routing", decisions=n_decisions, flips=flips)
     scale = want.abs().max().item()
     err = check_close("moe-lm fp32", got.cpu() / scale, want / scale, 1e-4)
@@ -1571,7 +1878,10 @@ def main() -> int:
     phase_lstm_grad()
     by_path = phase_main_path()
     by_path.update(phase_multichip_card())
+    by_path.update(phase_multichip_moe())
     _check_own_paths(by_path)
+    phase_pipeline_card()
+    phase_checkpoint_card()
     launches = {name: sum(p[name] for p in by_path.values())
                 for name in kernels}
     phase_lm_profile()

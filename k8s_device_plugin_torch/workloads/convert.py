@@ -79,3 +79,19 @@ def lm_params_to_state_dict(params: Mapping[str, Any]
 #: the MoE LM pytree (``{embed, layers: [{qkv, proj, moe: {gate, w_in,
 #: w_out}}]}``) -> a state_dict for ``moe.MoELM``: the same flattening
 moe_lm_params_to_state_dict = lm_params_to_state_dict
+
+
+def params_to_state_dict(params: Mapping[str, Any]
+                         ) -> dict[str, torch.Tensor]:
+    """A JAX dict of arrays -> the state_dict of the port's module of the
+    same names and layouts: JAX's ``init_moe_params`` (``gate``, ``w_in``,
+    ``w_out``) for ``moe.MoE``, ``init_stage_params`` (``w_in``, ``w_out``)
+    for ``pipeline.Stages``. Arrays keep their dtype."""
+    return {".".join(path): torch.tensor(arr)
+            for path, arr in _leaves(params)}
+
+
+#: JAX's ``init_moe_params`` -> ``moe.MoE``
+moe_params_to_state_dict = params_to_state_dict
+#: JAX's ``init_stage_params`` -> ``pipeline.Stages``
+stage_params_to_state_dict = params_to_state_dict

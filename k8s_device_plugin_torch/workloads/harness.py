@@ -6,7 +6,9 @@ Counterpart of ``k8s_device_plugin_tpu/workloads/harness.py``
 ``seg_cross_entropy``, ``make_train_fn``, ``init_train_state``,
 ``timed_warmup``, ``time_fn``; the meshes' ``make_mesh``,
 ``make_mesh_3d``, ``state_shardings``, ``batch_shardings`` and
-``shard_train_step``; the compile cache's ``setup_compile_cache``,
+``shard_train_step``, and :func:`shard_params` and
+:func:`sum_replica_grads` for the expert, pipeline and MoE-LM meshes;
+the compile cache's ``setup_compile_cache``,
 ``active_compile_cache_dir`` and ``record_compile_cache_key``), with
 ``torch.cuda.synchronize`` where JAX waits with ``block_until_ready``. The
 JAX train state's ``params`` and ``batch_stats`` live in the module, its
@@ -18,7 +20,8 @@ shardings and lets XLA place the collectives; here every rank runs its
 own shard of it, and :func:`shard_model` puts in what XLA would: the
 batch's BatchNorm statistics summed over ``dp``, the column-sharded head's
 input and output collectives over ``mp``, and the gradients averaged over
-``dp``.
+``dp``. A model sharded here records its specs as ``model.shard_specs``,
+which checkpoints read.
 """
 
 from __future__ import annotations
@@ -229,18 +232,37 @@ def _is_head(name: str) -> bool:
     return "head" in keys or "classifier" in keys
 
 
+#: the mesh axes a stack of experts or pipeline stages splits over, in the
+#: order they are looked for: ``ep`` (the Switch layer), ``pp`` (the
+#: pipeline), ``sp`` (the MoE LM's experts ride its sequence axis)
+STACK_AXES = ("ep", "pp", "sp")
+
+
+def _param_spec(name: str, t: torch.Tensor, shape: dict) -> tuple:
+    leaf = name.rpartition(".")[2]
+    if leaf in ("w_in", "w_out") and t.dim() == 3:
+        axis = next((a for a in STACK_AXES if a in shape), None)
+        if axis is not None and t.shape[0] % shape[axis] == 0:
+            return (axis, None, None)
+    if "mp" in shape and _is_head(name) and t.dim() >= 1 \
+            and t.shape[0] % shape["mp"] == 0:
+        return ("mp",) + (None,) * (t.dim() - 1)
+    return ()
+
+
 def state_shardings(mesh, model: nn.Module) -> dict:
-    """The partition spec of every entry of ``model.state_dict()``, as
-    JAX's ``PartitionSpec``: a tuple naming the mesh axis that splits each
-    tensor dim, or None, and ``()`` for a replicated tensor. The head's
-    (or classifier's) weight and bias split their output features over
-    ``mp`` where ``mp`` divides them (PyTorch's dim 0 is the Flax kernel's
-    last); everything else is replicated."""
+    """The partition spec of every entry of ``model.state_dict()`` (the
+    whole tensors), as JAX's ``PartitionSpec``: a tuple naming the mesh
+    axis that splits each tensor dim, or None, and ``()`` for a replicated
+    tensor. The head's (or classifier's) weight and bias split their output
+    features over ``mp`` where ``mp`` divides them (PyTorch's dim 0 is the
+    Flax kernel's last); a 3-D ``w_in`` or ``w_out``, a stack of experts or
+    of pipeline stages, splits its leading dim over the first axis of
+    :data:`STACK_AXES` the mesh has, where it divides; everything else is
+    replicated."""
     shape = mesh_shape(mesh)
-    return {name: ("mp",) + (None,) * (t.dim() - 1)
-            if "mp" in shape and _is_head(name) and t.dim() >= 1
-            and t.shape[0] % shape["mp"] == 0
-            else () for name, t in model.state_dict().items()}
+    return {name: _param_spec(name, t, shape)
+            for name, t in model.state_dict().items()}
 
 
 def batch_shardings(mesh, batch: torch.Tensor) -> tuple:
@@ -263,27 +285,59 @@ def local_shard(t: torch.Tensor, mesh, spec: tuple) -> torch.Tensor:
     return t
 
 
-def shard_model(model: nn.Module, mesh, batch: torch.Tensor) -> bool:
-    """Put ``model`` under the mesh's shardings, in place, for ``batch``
-    (the whole batch; every rank passes the same one); returns whether the
-    batch is split over ``dp``.
-
-    The head's sharded weight and bias become this rank's slices (the same
-    ``Parameter`` objects, so an optimizer built on the model still holds
-    them), and the head runs between :func:`collectives.copy_to` and
-    :func:`collectives.gather_from` over ``mp``, so every rank sees the
-    whole logits. With the batch split, every BatchNorm takes the whole
-    batch's statistics over ``dp``."""
-    from .collectives import copy_to, gather_from
-    from .resnet import BatchNorm
+def shard_params(model: nn.Module, mesh) -> set:
+    """Replace every tensor of ``model`` that :func:`state_shardings`
+    splits with this rank's block of it, in place (the same ``Parameter``
+    objects, so an optimizer built on the model still holds them), and
+    record the specs as ``model.shard_specs``, which checkpoints and
+    :func:`sum_replica_grads` read. Returns the names of the modules that
+    own a split tensor."""
     specs = state_shardings(mesh, model)
-    sharded = set()
+    owners = set()
     with torch.no_grad():
         for name, t in list(model.named_parameters()) \
                 + list(model.named_buffers()):
             if specs[name]:
                 t.data = local_shard(t.data, mesh, specs[name]).clone()
-                sharded.add(name.rpartition(".")[0])
+                owners.add(name.rpartition(".")[0])
+    model.shard_specs = specs
+    return owners
+
+
+@torch.no_grad()
+def sum_replica_grads(model: nn.Module, mesh) -> None:
+    """Sum each parameter's gradient over the mesh axes it is replicated
+    on, in place: the gradient of a loss whose every rank differentiated
+    its own share (``collectives.reduce_loss``). A tensor split over an
+    axis (``model.shard_specs``, from :func:`shard_params`) holds a
+    different block on each rank of that axis, so it is summed over the
+    others only: the experts of a (dp, ep) mesh over dp, the gate over
+    both."""
+    from .collectives import sum_grads
+    specs = getattr(model, "shard_specs", {})
+    for name, p in model.named_parameters():
+        split = {a for a in specs.get(name, ()) if a is not None}
+        if not split:
+            sum_grads([p])
+            continue
+        for axis in mesh.mesh_dim_names:
+            if axis not in split:
+                sum_grads([p], mesh.get_group(axis))
+
+
+def shard_model(model: nn.Module, mesh, batch: torch.Tensor) -> bool:
+    """Put ``model`` under the mesh's shardings, in place, for ``batch``
+    (the whole batch; every rank passes the same one); returns whether the
+    batch is split over ``dp``.
+
+    The head's sharded weight and bias become this rank's slices
+    (:func:`shard_params`), and the head runs between
+    :func:`collectives.copy_to` and :func:`collectives.gather_from` over
+    ``mp``, so every rank sees the whole logits. With the batch split,
+    every BatchNorm takes the whole batch's statistics over ``dp``."""
+    from .collectives import copy_to, gather_from
+    from .resnet import BatchNorm
+    sharded = shard_params(model, mesh)
     if sharded:
         group = mesh.get_group("mp")
     for name in sharded:

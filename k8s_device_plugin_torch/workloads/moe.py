@@ -1,23 +1,31 @@
-"""Switch mixture-of-experts and the MoE decoder, single device.
+"""Switch mixture-of-experts: the expert-parallel layer and the MoE
+decoder.
 
-Counterpart of the single-device part of
-``k8s_device_plugin_tpu/workloads/moe.py``: Switch top-1 routing with a
-static capacity (:func:`_route`), the expert FFN stacks, the layer with
-every expert local (:func:`moe_layer_dense`, also the serving path's
-drop-free expert apply in ``decode.py``), its per-shard oracle
-(:func:`moe_reference`), and the long-context MoE decoder
-(:func:`moe_lm_forward`, :func:`moe_lm_loss`): ``attention.lm_forward``
-with its ``ffn`` hook swapped for the experts, so both LMs share one
-decoder loop and every attention path (dense, or the flash absorb).
+Counterpart of ``k8s_device_plugin_tpu/workloads/moe.py``: Switch top-1
+routing with a static capacity (:func:`_route`), the expert FFN stacks,
+the layer with every expert local (:func:`moe_layer_dense`, also the
+serving path's drop-free expert apply in ``decode.py``), its per-shard
+oracle (:func:`moe_reference`), the expert-parallel layer
+(:func:`moe_layer`, :func:`moe_forward`, :func:`moe_loss`) and the
+long-context MoE decoder (:func:`moe_lm_forward`, :func:`moe_lm_loss`):
+``attention.lm_forward`` with its ``ffn`` hook swapped for the experts, so
+both LMs share one decoder loop and every attention path (dense, the flash
+absorb, the ring and Ulysses over a mesh).
 
 The parameters keep the JAX names and layouts (``gate`` [D, E], ``w_in``
 [E, D, F], ``w_out`` [E, F, D]), so carrying weights across is a rename
-(``convert.moe_lm_params_to_state_dict``). Capacity is a per-shard
-semantic: on one device the forward takes ``shard_shape=(dp, sp)`` and
-routes each block of batch and sequence on its own, as the JAX oracle
-does. The dispatch, the expert FFNs and the combine are plain products in
-fp32, as JAX casts them, outside any kernel. The expert-parallel layer
-(two all-to-alls over an ``ep`` mesh axis) is not ported yet.
+(``convert.moe_params_to_state_dict``). Capacity is a per-shard semantic:
+on one device the forward takes ``shard_shape=(dp, sp)`` and routes each
+block of batch and sequence on its own, as the JAX oracle does; over a
+mesh each rank routes its own block. The dispatch, the expert FFNs and the
+combine are plain products in fp32, as JAX casts them, outside any kernel.
+
+Over a mesh every rank holds its block of the tokens and its slice
+``[E / n, ...]`` of the expert stacks (``harness.shard_params``; the gate
+is whole on every rank), and each rank back-propagates its share of the
+loss (``collectives.reduce_loss``): ``harness.sum_replica_grads`` then sums
+the gate's gradient over the world and the experts' over the axes they are
+not split on.
 """
 
 from __future__ import annotations
@@ -25,16 +33,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import LMLayer, lm_forward
+from . import collectives
+from .attention import LMLayer, lm_forward, seq_shard
 from .harness import cross_entropy
-
-
-def _not_ported(name: str):
-    raise NotImplementedError(f"{name}: the expert-parallel layer over an "
-                              f"ep mesh is not yet ported")
 
 
 class MoE(nn.Module):
@@ -126,22 +131,89 @@ def moe_reference(x_shards, params: MoE, capacity_factor: float = 1.25):
     return out, aux.mean()
 
 
-def moe_layer(x, params, axis_name: str = "ep",
-              capacity_factor: float = 1.25):
-    """The expert-parallel layer (all-to-alls over ``axis_name``)."""
-    _not_ported("moe_layer")
+def _to_owners(xs, group):
+    """[E, C, D] -> [E / n, n C, D]: expert e's slots to rank e // (E / n)
+    of ``group``, the slots received from rank j at ``j C`` (JAX's tiled
+    ``all_to_all``, split_axis 0, concat_axis 1)."""
+    n = dist.get_world_size(group)
+    e, c, d = xs.shape
+    xs = collectives.all_to_all(xs.reshape(n, e // n, c, d), group)
+    return xs.transpose(0, 1).reshape(e // n, n * c, d)
 
 
-def moe_forward(x, params, mesh, capacity_factor: float = 1.25,
-                dp_axis: str = "dp", ep_axis: str = "ep"):
-    """The sharded MoE over a dp x ep mesh."""
-    _not_ported("moe_forward")
+def _from_owners(ys, group):
+    """[E / n, n C, D] -> [E, C, D], the inverse of :func:`_to_owners`:
+    the slots of rank j's tokens go back to rank j."""
+    n = dist.get_world_size(group)
+    e_loc, nc, d = ys.shape
+    ys = ys.reshape(e_loc, n, nc // n, d).transpose(0, 1)
+    return collectives.all_to_all(ys, group).reshape(n * e_loc, nc // n, d)
 
 
-def moe_loss(params, x, targets, mesh, capacity_factor: float = 1.25,
+def moe_layer(x, params: MoE, group, capacity_factor: float = 1.25):
+    """One expert-parallel Switch layer over the ranks of ``group``. x:
+    this rank's tokens [N, D]; ``params``: the gate whole, ``w_in`` and
+    ``w_out`` this rank's [E / n, ...] slice of the experts. Routes the
+    rank's tokens over all E experts with the capacity of its own
+    ``ceil(N cf / E)`` slots an expert, sends each expert's slots to its
+    owner, runs the owners' FFNs and sends the results back. Returns (the
+    expert mixture [N, D] in x's dtype, without the residual; this rank's
+    aux)."""
+    n_experts = params.w_in.shape[0] * dist.get_world_size(group)
+    capacity = max(1, math.ceil(x.shape[0] * capacity_factor / n_experts))
+    dispatch, combine, aux = _route(x, params.gate, n_experts, capacity)
+    xs = _to_owners(torch.einsum("nec,nd->ecd", dispatch, x.float()), group)
+    ys = _expert_ffn(xs, params.w_in.float(), params.w_out.float())
+    out = torch.einsum("nec,ecd->nd", combine, _from_owners(ys, group))
+    return out.to(x.dtype), aux
+
+
+def _world_mean(x, mesh):
+    """The mean of every rank's ``x`` over the mesh, on every rank (JAX's
+    ``pmean`` over each axis); its backward hands each rank the cotangent
+    of its own share."""
+    for axis in mesh.mesh_dim_names:
+        x = collectives.reduce_loss(x / mesh.size(mesh.mesh_dim_names.index(
+            axis)), mesh.get_group(axis))
+    return x
+
+
+def ep_shard(x, mesh):
+    """This rank's block of ``x`` [S, ...] whose dim S splits over the
+    (dp, ep) mesh (JAX's ``P((dp, ep))``: dp-major)."""
+    ep = mesh.size(mesh.mesh_dim_names.index("ep"))
+    i = mesh.get_local_rank("dp") * ep + mesh.get_local_rank("ep")
+    blocks = mesh.size()
+    if x.shape[0] % blocks:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split over "
+                         f"{blocks} ranks")
+    step = x.shape[0] // blocks
+    return x[i * step:(i + 1) * step]
+
+
+def moe_forward(x, params: MoE, mesh, capacity_factor: float = 1.25):
+    """The sharded MoE over a (dp, ep) mesh: x is this rank's block [1, N,
+    D] of the [dp ep, N, D] shards (:func:`ep_shard`), ``params`` the gate
+    and this rank's experts (``harness.shard_params``). Returns (this
+    rank's [1, N, D] block of the outputs, the mean aux over the mesh)."""
+    if x.shape[0] != 1:
+        raise ValueError(f"moe_forward: one shard a rank, got {x.shape[0]}")
+    out, aux = moe_layer(x[0], params, mesh.get_group("ep"),
+                         capacity_factor)
+    return out[None], _world_mean(aux, mesh)
+
+
+def moe_loss(params: MoE, x, targets, mesh, capacity_factor: float = 1.25,
              aux_weight: float = 0.01):
-    """The ep dry run's training objective."""
-    _not_ported("moe_loss")
+    """The ep dry run's training objective: the MSE of ``out + x`` against
+    ``targets`` (both the whole [dp ep, N, D] on every rank) plus
+    ``aux_weight`` times the mean aux. Each rank computes its block's share
+    of the global mean, so its backward differentiates that share
+    (``harness.sum_replica_grads`` then gives the gradient of the mean)."""
+    xb, tb = ep_shard(x, mesh), ep_shard(targets, mesh)
+    out, aux = moe_forward(xb, params, mesh, capacity_factor)
+    share = ((out.float() + xb.float() - tb.float()) ** 2).sum() / x.numel()
+    return collectives.reduce_loss(share) + aux_weight * aux
 
 
 # --------------------------------------------- long-context MoE mini-LM
@@ -189,46 +261,77 @@ def init_moe_lm_params(generator: torch.Generator, vocab: int, dim: int,
 
 
 def moe_lm_forward(params: MoELM, tokens, mesh=None,
-                   capacity_factor: float = 1.25, seq_mode: str | None = None,
+                   capacity_factor: float = 1.25, seq_mode: str = "ring",
                    shard_shape: tuple[int, int] | None = None,
                    use_flash: bool = False):
     """(logits [B, T, V], mean of the layers' aux losses) for ``tokens``
-    [B, T]. Each layer routes the (dp, sp) blocks of ``shard_shape`` (batch
-    split dp ways, sequence sp ways; default one block) on their own, in
-    the JAX oracle's order. ``use_flash`` runs each layer's attention as
-    one whole-sequence flash absorb (no chunking, as JAX passes none). A
-    mesh or a ``seq_mode`` is not ported yet."""
-    if mesh is not None or seq_mode is not None:
-        raise NotImplementedError("moe_lm_forward: a mesh / seq_mode "
-                                  "(sequence and expert parallelism) is "
-                                  "not yet ported")
-    dp, sp = shard_shape if shard_shape is not None else (1, 1)
+    [B, T].
+
+    Without a mesh each layer routes the (dp, sp) blocks of
+    ``shard_shape`` (batch split dp ways, sequence sp ways; default one
+    block) on their own, in the JAX oracle's order, and ``use_flash`` runs
+    each layer's attention as one whole-sequence flash absorb (no
+    chunking, as JAX passes none); ``seq_mode`` changes nothing.
+
+    With a (dp, sp) ``mesh`` ``tokens`` is this rank's [B/dp, T/sp] block
+    and the logits are its block (``attention.lm_forward``): attention runs
+    over sp by ``seq_mode`` (through the flash absorb with ``use_flash``),
+    and each layer's experts ride the same axis: the rank's tokens through
+    :func:`moe_layer` over the sp group, the experts its [E / sp, ...]
+    slice (JAX's ``_moe_ffn_local``). The aux is the mean over the mesh."""
     aux_acc = []
+    if mesh is not None:
+        group = mesh.get_group("sp")
 
-    def moe_ffn(h, lyr):
-        bb, tt, dd = h.shape
-        shards = h.reshape(dp, bb // dp, sp, tt // sp, dd).transpose(1, 2) \
-            .reshape(dp * sp, (bb // dp) * (tt // sp), dd)
-        out, aux = moe_reference(shards, lyr.moe, capacity_factor)
-        aux_acc.append(aux)
-        return out.reshape(dp, sp, bb // dp, tt // sp, dd).transpose(1, 2) \
-            .reshape(bb, tt, dd)
+        def moe_ffn(h, lyr):
+            bb, tt, dd = h.shape
+            out, aux = moe_layer(h.reshape(bb * tt, dd), lyr.moe, group,
+                                 capacity_factor)
+            aux_acc.append(_world_mean(aux, mesh))
+            return out.reshape(bb, tt, dd)
+    else:
+        dp, sp = shard_shape if shard_shape is not None else (1, 1)
 
-    logits = lm_forward(params, tokens, use_flash=use_flash, ffn=moe_ffn)
+        def moe_ffn(h, lyr):
+            bb, tt, dd = h.shape
+            shards = h.reshape(dp, bb // dp, sp, tt // sp, dd) \
+                .transpose(1, 2) \
+                .reshape(dp * sp, (bb // dp) * (tt // sp), dd)
+            out, aux = moe_reference(shards, lyr.moe, capacity_factor)
+            aux_acc.append(aux)
+            return out.reshape(dp, sp, bb // dp, tt // sp, dd) \
+                .transpose(1, 2).reshape(bb, tt, dd)
+
+    logits = lm_forward(params, tokens, mesh, use_flash=use_flash,
+                        seq_mode=seq_mode, ffn=moe_ffn)
     return logits, sum(aux_acc) / len(aux_acc)
 
 
 def moe_lm_loss(params: MoELM, tokens, mesh=None,
                 capacity_factor: float = 1.25, aux_weight: float = 0.01,
-                seq_mode: str | None = None,
+                seq_mode: str = "ring",
                 shard_shape: tuple[int, int] | None = None,
                 use_flash: bool = False):
     """Next-token cross entropy in fp32 over ``tokens`` [B, T + 1] plus
     ``aux_weight`` times the load-balance aux; differentiable through the
     flash absorb's recompute backward when ``use_flash`` is on (each
-    backward then rebuilds a whole-sequence [B, H, T, T] fp32 score
-    block)."""
-    logits, aux = moe_lm_forward(params, tokens[:, :-1], mesh,
-                                 capacity_factor, seq_mode, shard_shape,
-                                 use_flash)
-    return cross_entropy(logits, tokens[:, 1:]) + aux_weight * aux
+    backward then rebuilds a whole-sequence [B, H, T, T] fp32 score block
+    without a mesh).
+
+    With a ``mesh``, ``tokens`` are the whole batch on every rank, as
+    ``attention.lm_loss`` takes them: each rank runs its [B/dp, T/sp]
+    block and returns the global loss, the sum of the ranks' shares, so
+    its backward differentiates its share (``harness.sum_replica_grads``
+    then sums the gradients: the attention weights and the gate over the
+    world, the experts over dp)."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if mesh is None:
+        logits, aux = moe_lm_forward(params, inputs, None, capacity_factor,
+                                     seq_mode, shard_shape, use_flash)
+        return cross_entropy(logits, targets) + aux_weight * aux
+    logits, aux = moe_lm_forward(params, seq_shard(inputs, mesh), mesh,
+                                 capacity_factor, seq_mode,
+                                 use_flash=use_flash)
+    share = cross_entropy(logits, seq_shard(targets, mesh)) \
+        * (logits.shape[0] * logits.shape[1] / targets.numel())
+    return collectives.reduce_loss(share) + aux_weight * aux

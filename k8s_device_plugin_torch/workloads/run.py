@@ -4,10 +4,10 @@ Counterpart of ``k8s_device_plugin_tpu/workloads/run.py``: runs one of the
 suite's models, activates the cooperative limiter (so memory and
 duty-cycle caps are honored and usage lands in the shared region for the
 monitor), and prints steady-state throughput as the same JSON fields.
-Every model of the JAX runner is ported, on one device: ``resnet50``,
+Every model and mode of the JAX runner is ported: ``resnet50``,
 ``resnet152``, ``vgg16``, ``deeplab`` and ``lstm`` in ``--mode infer`` and
 ``--mode train``, and the long-context ``lm`` and ``moe-lm`` in ``--mode
-infer`` and ``--mode train`` (on the card their attention runs through the
+infer`` and ``--mode train`` (on one card their attention runs through the
 flash-absorb kernel, in training with the recompute backward) and ``--mode
 decode`` (KV-cache serving). Under ``VTPU_COMPILE_CACHE_DIR`` the kernels
 build into the compile cache and the run vouches for
@@ -22,9 +22,10 @@ chip), one device a rank: NCCL on ``cuda:LOCAL_RANK``, gloo with
 mp) mesh (``harness.make_mesh``: the batch over dp, the head over mp);
 ``lm`` runs sequence-parallel on a (dp, sp) mesh, sp 4, 2 or 1 as the world
 divides, the sequence and the batch padded up to whole blocks, its
-attention the ring's plain absorb, as the JAX runner's under a mesh.
-``--mode decode`` is single-device, as in JAX, and ``moe-lm`` over a mesh
-(its expert parallelism) is not yet ported.
+attention the ring's plain absorb, as the JAX runner's under a mesh;
+``moe-lm`` runs the same way, its experts split over the same sp axis
+(``max(8, 2 sp)`` of them, as JAX sizes them) and each rank routing its
+whole block. ``--mode decode`` is single-device, as in JAX.
 
 Usage:
   python3 -m k8s_device_plugin_torch.workloads.run --model lstm \
@@ -33,7 +34,7 @@ Usage:
   python3 -m k8s_device_plugin_torch.workloads.run --model lm|moe-lm \
       --mode infer|train|decode [--batch N] [--size SEQ] [--steps K]
   torchrun --nproc-per-node N -m k8s_device_plugin_torch.workloads.run \
-      --model resnet50|lm ... --multichip
+      --model resnet50|lm|moe-lm ... --multichip
 """
 
 from __future__ import annotations
@@ -61,21 +62,17 @@ CASES = {
     "lm": (8, 4, 2048),
     "moe-lm": (8, 4, 2048),
 }
-PORTED = {"resnet50": ("infer", "train"), "resnet152": ("infer", "train"),
-          "vgg16": ("infer", "train"), "deeplab": ("infer", "train"),
-          "lstm": ("infer", "train"), "lm": ("infer", "train", "decode"),
-          "moe-lm": ("infer", "train", "decode")}
-#: models ``--multichip`` shards, in ``--mode infer`` and ``train``
-MULTICHIP = ("resnet50", "resnet152", "vgg16", "deeplab", "lstm", "lm")
 #: time steps of the LSTM case's input sequence (as the JAX runner)
 LSTM_STEPS = 64
 #: one LM shape for every lm mode: heads, dim, vocab, layers
 LM_CONFIG = (8, 512, 8192, 4)
 #: tokens decoded per call in --mode decode; --steps = calls per round
 DECODE_LEN = 32
-#: experts per MoE layer on one device (the JAX runner's max(8, 2 sp))
+#: experts per MoE layer at least: the JAX runner's max(8, 2 sp), 8 for
+#: every sp the runner picks
 MOE_EXPERTS = 8
-#: tokens of one routing group of the MoE LM (one block of a sequence)
+#: tokens of one routing group of the MoE LM on one device (one block of
+#: a sequence)
 MOE_GROUP = 1024
 
 
@@ -102,7 +99,7 @@ def build_model(name: str, dtype: torch.dtype, size: int,
         return DeepLabV3(dtype=dtype, param_dtype=param_dtype)
     if name == "lstm":
         return LSTMClassifier(features=size, dtype=dtype, use_pallas=on_card)
-    raise SystemExit(f"model {name} is not yet ported")
+    raise SystemExit(f"unknown model {name}")
 
 
 def _bench_loop(args, call, device, limiter, batch: int, extra_fn) -> int:
@@ -144,29 +141,33 @@ def _lm_setup(args, batch: int, seq: int, device):
     bf16, random weights from seed 0, tokens from seed 1 (one more
     position to train: the next-token shift leaves ``seq``). With
     ``--multichip`` (never to decode) a (dp, sp) mesh over the world, sp
-    4, 2 or 1 as the world divides, and the sequence and the batch rounded
-    up to whole per-rank blocks, as the JAX runner pads them."""
+    4, 2 or 1 as the world divides, the sequence and the batch rounded
+    up to whole per-rank blocks, as the JAX runner pads them, and the MoE
+    LM's experts split over sp (``harness.shard_params``); without one
+    the MoE LM's sequence is padded to whole ``MOE_GROUP`` blocks."""
     from . import harness
     from .attention import init_lm_params
     from .moe import init_moe_lm_params
     heads, dim, vocab, layers = LM_CONFIG
     seed = torch.Generator().manual_seed(0)
-    if args.model == "moe-lm":
-        model = init_moe_lm_params(seed, vocab, dim, heads, layers,
-                                   n_experts=MOE_EXPERTS,
-                                   dtype=torch.bfloat16, device=device)
-    else:
-        model = init_lm_params(seed, vocab, dim, heads, layers,
-                               dtype=torch.bfloat16, device=device)
-    mesh = None
+    mesh, sp = None, 1
     if args.multichip:
         n = dist.get_world_size()
         sp = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
         mesh = harness.device_mesh((n // sp, sp), ("dp", "sp"))
         seq = -(-seq // sp) * sp
         batch = -(-batch // (n // sp)) * (n // sp)
-    if args.model == "moe-lm" and args.mode != "decode":
+    elif args.model == "moe-lm" and args.mode != "decode":
         seq = -(-seq // MOE_GROUP) * MOE_GROUP
+    if args.model == "moe-lm":
+        model = init_moe_lm_params(seed, vocab, dim, heads, layers,
+                                   n_experts=max(MOE_EXPERTS, 2 * sp),
+                                   dtype=torch.bfloat16, device=device)
+    else:
+        model = init_lm_params(seed, vocab, dim, heads, layers,
+                               dtype=torch.bfloat16, device=device)
+    if mesh is not None:
+        harness.shard_params(model, mesh)
     length = seq + 1 if args.mode == "train" else seq
     tokens = torch.randint(0, vocab, (batch, length),
                            generator=torch.Generator().manual_seed(1)
@@ -184,29 +185,35 @@ def _lm_call(args, batch: int, seq: int, device):
     ``lm_loss``'s 1024-token chunks, whose recompute backward holds one
     [B, H, 1024, 1024] score block at a time; the MoE LM trains on
     whole-sequence absorbs, as the JAX ``moe_lm_loss`` passes no chunking.
-    Training is plain SGD on the bf16 weights (``p - 1e-3 g``). The MoE LM
-    routes each ``MOE_GROUP``-token block of each sequence on its own
-    (``shard_shape``), the sequence padded to whole blocks, as the JAX
-    runner bounds its [N, E, C] dispatch tensors. On the CPU attention is
-    the dense oracle, as the JAX runner off the TPU. On a mesh every rank
-    runs its [B/dp, T/sp] block, attention the ring's plain absorb (as
-    the JAX runner's under a mesh), and the gradients are summed over the
-    world before the step."""
+    Training is plain SGD on the bf16 weights (``p - 1e-3 g``). On one
+    device the MoE LM routes each ``MOE_GROUP``-token block of each
+    sequence on its own (``shard_shape``), the sequence padded to whole
+    blocks, as the JAX runner bounds its [N, E, C] dispatch tensors. On the
+    CPU attention is the dense oracle, as the JAX runner off the TPU. On a
+    mesh every rank runs its [B/dp, T/sp] block, attention the ring's
+    plain absorb (as the JAX runner's under a mesh), the MoE LM's rank
+    routes its whole block (as JAX passes no ``shard_shape`` under a
+    mesh), and the gradients are summed over the axes each weight is
+    replicated on before the step (``harness.sum_replica_grads``: the
+    experts over dp, the rest over the world). ``call.model``,
+    ``call.tokens`` and ``call.mesh`` are what the call runs on."""
     from . import harness
     from .attention import lm_forward, lm_loss, seq_shard
-    from .collectives import sum_grads
     from .moe import moe_lm_forward, moe_lm_loss
     model, tokens, mesh, batch, seq = _lm_setup(args, batch, seq, device)
     use_flash = device.type == "cuda" and mesh is None
     if args.model == "moe-lm":
-        shard_shape = (batch, seq // MOE_GROUP)
+        shard_shape = None if mesh is not None else (batch,
+                                                     seq // MOE_GROUP)
 
         def forward(t):
-            return moe_lm_forward(model, t, use_flash=use_flash,
+            if mesh is not None:
+                t = seq_shard(t, mesh)
+            return moe_lm_forward(model, t, mesh, use_flash=use_flash,
                                   shard_shape=shard_shape)[0]
 
         def loss_of(t):
-            return moe_lm_loss(model, t, use_flash=use_flash,
+            return moe_lm_loss(model, t, mesh, use_flash=use_flash,
                                shard_shape=shard_shape)
     else:
         def forward(t):
@@ -228,9 +235,10 @@ def _lm_call(args, batch: int, seq: int, device):
             loss = loss_of(tokens)
             loss.backward()
             if mesh is not None:
-                sum_grads(model.parameters())
+                harness.sum_replica_grads(model, mesh)
             optimizer.step()
             return loss.detach()
+    call.model, call.tokens, call.mesh = model, tokens, mesh
     sp = harness.mesh_shape(mesh)["sp"] if mesh is not None else 1
     return call, batch, lambda dt: {
         "model": args.model, "mode": args.mode, "seq": seq,
@@ -368,7 +376,8 @@ def parse_args(argv=None):
                    help="loop until killed (service pods)")
     p.add_argument("--multichip", action="store_true",
                    help="shard over every rank of the world (dp x mp mesh; "
-                        "for --model lm, a dp x sp sequence-parallel mesh)")
+                        "for --model lm and moe-lm, a dp x sp "
+                        "sequence-parallel mesh)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -377,15 +386,6 @@ def parse_args(argv=None):
     if args.mode == "decode" and args.multichip:
         raise SystemExit("--mode decode is single-device (no --multichip "
                          "mesh)")
-    if args.mode not in PORTED.get(args.model, ()) or (
-            args.multichip and args.model not in MULTICHIP):
-        raise SystemExit(
-            f"--model {args.model} --mode {args.mode}"
-            f"{' --multichip' if args.multichip else ''} is not yet ported "
-            f"(ported: "
-            + ", ".join(f"{m} in --mode {'/'.join(modes)}"
-                        for m, modes in PORTED.items())
-            + "; --multichip for " + ", ".join(MULTICHIP) + ")")
     return args
 
 

@@ -167,17 +167,22 @@ def test_init_is_seeded_shaped_and_validated():
 
 
 def test_sequence_parallelism_is_not_yet_ported():
-    """The LM's sequence parallelism is ported (``test_torch_seqpar.py``
-    holds it against JAX's); what stays refused is the MoE LM over a mesh
-    (its expert parallelism), and without a mesh ``seq_mode`` changes
-    nothing, as in JAX."""
+    """Sequence parallelism is ported, the MoE LM's too
+    (``test_torch_seqpar.py`` and ``test_torch_ep_pp.py`` hold them against
+    JAX's); without a mesh ``seq_mode`` changes nothing, as in JAX, for the
+    LM and for the MoE LM, whose default is the ring, as JAX's."""
     _, model = _models()
     tokens = torch.from_numpy(_tokens())
     torch.testing.assert_close(
         tatt.lm_forward(model, tokens, seq_mode="ulysses"),
         tatt.lm_forward(model, tokens), rtol=0, atol=0)
+    import inspect
     from k8s_device_plugin_torch.workloads import moe as tmoe
     moe = tmoe.init_moe_lm_params(torch.Generator().manual_seed(0), 16, 8,
                                   2, 1, n_experts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmoe.moe_lm_forward(moe, tokens % 16, mesh=object())
+    for got, want in zip(tmoe.moe_lm_forward(moe, tokens % 16,
+                                             seq_mode="ulysses"),
+                         tmoe.moe_lm_forward(moe, tokens % 16)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for fn in (tmoe.moe_lm_forward, tmoe.moe_lm_loss):
+        assert inspect.signature(fn).parameters["seq_mode"].default == "ring"

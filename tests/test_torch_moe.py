@@ -199,8 +199,11 @@ def test_moe_generate_matches_jax_and_the_dropfree_recompute():
 
 def test_init_is_seeded_scaled_and_the_mesh_is_not_ported():
     """init_moe_lm_params: the JAX layout and scales (1/sqrt(dim), w_out
-    1/sqrt(hidden)), the same weights from the same seed, no MLP; the
-    expert-parallel layer raises."""
+    1/sqrt(hidden)), the same weights from the same seed, no MLP. The
+    expert-parallel layer is ported now (``test_torch_ep_pp.py`` holds it
+    against JAX on 8 ranks): on a world of one, ``moe_layer`` over its
+    group is the dense layer, and the MoE LM on a (1, 1) mesh is the
+    oracle with ``shard_shape=(1, 1)``."""
     def build():
         return tmoe.init_moe_lm_params(torch.Generator().manual_seed(0),
                                        512, 64, 4, 2, n_experts=8,
@@ -218,8 +221,17 @@ def test_init_is_seeded_scaled_and_the_mesh_is_not_ported():
     for a, b in zip(model.parameters(), build().parameters()):
         assert torch.equal(a, b)
     assert model.layers[0].mlp_in is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmoe.moe_lm_forward(model, torch.zeros(1, 4, dtype=torch.long),
-                            mesh=object())
-    with pytest.raises(NotImplementedError, match="ep mesh"):
-        tmoe.moe_layer(torch.zeros(4, 64), model.layers[0].moe)
+    from k8s_device_plugin_torch.workloads import harness, run
+    x = torch.randn(12, 64, generator=torch.Generator().manual_seed(6))
+    tokens = torch.randint(0, 512, (2, 8),
+                           generator=torch.Generator().manual_seed(7))
+    with torch.no_grad(), run.world(torch.device("cpu")):
+        mesh = harness.device_mesh((1, 1), ("dp", "sp"))
+        got = tmoe.moe_layer(x, model.layers[0].moe, mesh.get_group("sp"))
+        logits, aux = tmoe.moe_lm_forward(model, tokens, mesh)
+    want = tmoe.moe_layer_dense(x, model.layers[0].moe)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        want = tmoe.moe_lm_forward(model, tokens, shard_shape=(1, 1))
+    torch.testing.assert_close(logits, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux, want[1], rtol=1e-6, atol=1e-6)

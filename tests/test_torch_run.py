@@ -6,6 +6,7 @@ about a card; only the keys and the control flow are checked here.
 """
 
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -24,6 +25,24 @@ from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
 def _last_json(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+#: the LM shape of the JAX runner's lines that the LM tests read keys from:
+#: its line's keys do not depend on it, and a small LM compiles in a
+#: fraction of the CPU time of ``LM_CONFIG``'s
+JAX_KEYS_LM = (2, 16, 64, 1)
+
+
+@functools.lru_cache
+def _jax_lm_line(*argv) -> dict:
+    """The JAX runner's last line for ``argv`` (an ``lm`` or ``moe-lm``
+    case) at ``JAX_KEYS_LM``."""
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as patch, \
+            contextlib.redirect_stdout(out):
+        patch.setattr(jrun, "LM_CONFIG", JAX_KEYS_LM)
+        assert jrun.main(list(argv)) == 0
+    return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
 def test_runner_prints_the_jax_runners_keys(monkeypatch, capsys):
@@ -73,8 +92,7 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", "lm", "--mode", mode, "--batch", "2", "--size", "16",
             "--steps", "1"]
-    assert jrun.main(tiny) == 0
-    want = _last_json(capsys)
+    want = _jax_lm_line(*tiny)
     from k8s_device_plugin_torch.workloads.flash import flash_absorb
     before = flash_absorb.launches
     assert trun.main(tiny + ["--device", "cpu"]) == 0
@@ -103,8 +121,7 @@ def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
     tiny = ["--model", model, "--mode", "train", "--size", "16", "--steps",
             "1"] + (["--batch", "2"] if model != "lm" else [])
     if model == "lm":
-        assert jrun.main(tiny) == 0
-        want = _last_json(capsys)
+        want = _jax_lm_line(*tiny)
         assert want["batch"] == trun.CASES["lm"][1]
         want = sorted(want)
     else:
@@ -134,11 +151,9 @@ def test_runner_runs_the_moe_lm_with_the_jax_runners_keys(mode, monkeypatch,
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     tiny = ["--model", "moe-lm", "--mode", mode, "--batch", "2", "--size",
             "16", "--steps", "1"]
+    want = _jax_lm_line(*tiny)
     with monkeypatch.context() as patch:
-        patch.setattr(jrun, "LM_CONFIG", (2, 16, 64, 1))
-        patch.setattr(trun, "LM_CONFIG", (2, 16, 64, 1))
-        assert jrun.main(tiny) == 0
-        want = _last_json(capsys)
+        patch.setattr(trun, "LM_CONFIG", JAX_KEYS_LM)
         from k8s_device_plugin_torch.workloads.flash import flash_absorb
         before = flash_absorb.launches
         assert trun.main(tiny + ["--device", "cpu"]) == 0
@@ -212,12 +227,60 @@ def test_runner_runs_vgg16_and_deeplab_with_the_jax_runners_keys(
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "moe-lm", "--multichip"],
-    ["--model", "moe-lm", "--mode", "train", "--multichip"],
+    ["--model", "moe-lm", "--mode", "decode", "--multichip"],
+    ["--model", "vgg16", "--mode", "decode"],
 ])
 def test_runner_refuses_what_is_not_ported(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """Every model and mode of the JAX runner is ported, ``moe-lm
+    --multichip`` too; what stays refused is what the JAX runner refuses:
+    decode across devices, and decode of a model without a cache."""
+    with pytest.raises(SystemExit, match="--mode decode"):
         trun.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("mode", ["infer", "train"])
+def test_runner_runs_the_moe_lm_multichip_at_world_one(mode, monkeypatch,
+                                                       capsys):
+    """``moe-lm --multichip`` on a world of one CPU rank, at a tiny
+    LM_CONFIG: the JAX runner's keys (its line is the same dict with a mesh
+    and without), the sequence not padded to a routing block (JAX routes
+    each rank's whole block under a mesh), and its first calls (the
+    logits; two steps' losses) against ``moe_lm_forward`` /
+    ``moe_lm_loss`` without a mesh and with ``shard_shape=(1, 1)``, the
+    oracle with the mesh's block boundaries, on the same weights, at the
+    repo's bf16 bound of 2e-2 of the largest magnitude (the ring's absorb
+    in place of dense attention)."""
+    from k8s_device_plugin_torch.workloads import moe as tmoe
+    monkeypatch.setattr(trun, "LM_CONFIG", JAX_KEYS_LM)
+    tiny = ["--model", "moe-lm", "--mode", mode, "--batch", "2", "--size",
+            "16", "--steps", "1"]
+    argv = tiny + ["--device", "cpu", "--multichip"]
+    assert trun.main(argv) == 0
+    line = _last_json(capsys)
+    assert sorted(line) == sorted(_jax_lm_line(*tiny))
+    assert (line["seq"], line["sp"], line["batch"]) == (16, 1, 2)
+    assert not torch.distributed.is_initialized()
+    calls = 2 if mode == "train" else 1
+    with trun.world(torch.device("cpu")) as device:
+        call, _, _ = trun.build_call(trun.parse_args(argv), device)
+        model, tokens = copy.deepcopy(call.model), call.tokens
+        got = [call() for _ in range(calls)]
+    assert model.layers[0].moe.w_in.shape[0] == trun.MOE_EXPERTS
+    if mode == "infer":
+        with torch.no_grad():
+            want = [tmoe.moe_lm_forward(model, tokens, shard_shape=(1, 1))[0]]
+    else:
+        optimizer = torch.optim.SGD(model.parameters(), lr=1e-3)
+        want = []
+        for _ in range(calls):
+            optimizer.zero_grad()
+            loss = tmoe.moe_lm_loss(model, tokens, shard_shape=(1, 1))
+            loss.backward()
+            optimizer.step()
+            want.append(loss.detach())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2 * w.float().abs().max().item())
 
 
 @pytest.mark.parametrize("argv,rel", [

@@ -209,7 +209,8 @@ def test_dry_run_lines_name_every_leg(ranks):
     ``dryrun_lines`` prints them in its format, finite losses only."""
     names = [name for name, _ in dryrun.dryrun_legs(N)]
     assert names == ["", " 3d", " sp", " sp", " sp", " sp+flash",
-                     " sp-ulysses", " sp+gqa", " gang"]
+                     " sp-ulysses", " sp+gqa", " ep", " pp",
+                     " sp+ep (moe-lm)", " gang"]
     results = [r for r in ranks[0][len(SPS):]]
     lines = dryrun.dryrun_lines(names[2:8], results)
     assert lines[0].startswith("dryrun_multichip sp ok: mesh={'dp': 4, "

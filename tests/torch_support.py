@@ -7,15 +7,13 @@ tests on one torch thread: tier-1 runs six workers at once, beside
 :func:`seeded_variables` fills the tree of a Flax model's init with numpy
 draws instead of running the init: ``jax.eval_shape`` gives the tree
 without tracing it into XLA or compiling it, which for a ResNet-50 saves
-about 20 CPU-seconds a test.
+about 20 CPU-seconds a test. Both import JAX when called, so a test file
+that needs only the fixture does not pay for it.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
-
-from k8s_device_plugin_tpu.workloads import harness as jh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -29,6 +27,9 @@ def one_torch_thread():
 def seeded_variables(model, x, seed: int, train: bool = True) -> dict:
     """Variables in the tree of ``model``'s init on ``x``, fp32, drawn from
     ``seed`` (see :func:`seeded_tree`)."""
+    import jax
+
+    from k8s_device_plugin_tpu.workloads import harness as jh
     shapes = jax.eval_shape(
         lambda b: jh.init_model(model, b, train=train), x)
     return seeded_tree(shapes, seed)
@@ -39,6 +40,7 @@ def seeded_tree(shapes, seed: int) -> dict:
     ``seed``: kernels normal over sqrt(fan-in), BatchNorm scales near 1,
     other vectors and running means near 0, running variances in
     [0.5, 1.5]."""
+    import jax
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):

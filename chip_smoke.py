@@ -8,7 +8,10 @@ Run from the repo root on a machine with one NVIDIA GPU:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. card: the card's name and power limit, as nvidia-smi reports them;
-2. build: every kernel under ``k8s_device_plugin_torch/csrc`` with nvcc;
+2. build: every kernel under ``k8s_device_plugin_torch/csrc`` with nvcc,
+   the host libraries (the enforcement shim ``libvtpu_cuda.so``, the
+   region's primitives, the mock driver) with cc, and the check that
+   holds ``csrc/cuda_driver_abi.h`` equal to the toolkit's ``cuda.h``;
    then the compile cache: the runner twice in fresh processes with
    ``VTPU_COMPILE_CACHE_DIR`` set, cold (builds K2 into the cache) and
    warm (builds nothing), and the key in the manifest;
@@ -24,14 +27,21 @@ Phases, one JSON line each; any failure exits non-zero:
    absorbs, with forward and forward + backward times beside dense
    attention's and SDPA's; the LSTM's gradients through K2 against the
    plain cell's at case 5.2;
+4b. enforcement (``enforcement_card``): the shim on the card, in fresh
+   processes under it with a 4 GiB cap: 512 MiB tensors until it refuses
+   one, the same past the cap under ``VTPU_OVERSUBSCRIBE=1``, a K2 launch
+   loop at core limit 50 against 0 (the ratio in the duty band), K1, K2
+   and K3 under it against their plain versions, and the kill switch;
+   every line with the card's name and power limit;
 5-12. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
-   (batch 50 @ 346) natively and as a 4-way share under the cooperative
-   limiter with the duty probe sampling beside it, then the bench's
+   (batch 50 @ 346) natively and as a 4-way share under the enforcement
+   shim with the duty probe sampling beside it, then the bench's
    oversubscribe phase (10 replicas at 8 @ 64 past a 64 MiB cap under
    ``VTPU_OVERSUBSCRIBE=1``: spill above 0, no violation) and its duty
-   check (case 1.1 at core limit 0 and 50: the ratio in [0.35, 0.65])
-   (``bench.measure``);
+   check (case 1.1 at core limit 0 and 50: the ratio in [0.35, 0.65]),
+   all wrapped (``bench.measure``), and the share once more under the
+   cooperative limiter, beside it;
    LSTM case 5.1 inference through the runner; the long-context LM
    (``LM_CONFIG``, batch 8 x 2048, bf16) through the runner in
    ``--mode infer`` (attention through the flash absorb) and in
@@ -200,9 +210,15 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """Every kernel with nvcc, the host libraries (the enforcement shim, the
+    region's primitives, the mock driver) with cc, and the check that
+    holds ``csrc/cuda_driver_abi.h`` equal to the toolkit's ``cuda.h``."""
     from k8s_device_plugin_torch import _build
     t0 = time.perf_counter()
     reports = _build.build_all()
+    hosts = {name: os.path.basename(_build.host_library(name))
+             for name in _build.HOST_LIBRARIES}
+    abi_header = _build.check_cuda_abi()
     seconds = time.perf_counter() - t0
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with open(os.path.join(_build.BUILD_DIR, "ptxas.log"), "w") as f:
@@ -212,7 +228,8 @@ def phase_build() -> None:
                     if "registers" in ln or "spill" in ln
                     or "warning" in ln.lower()]
              for name, log in reports.items()}
-    emit("build", seconds=seconds, kernels=sorted(reports), ptxas=usage)
+    emit("build", seconds=seconds, kernels=sorted(reports), ptxas=usage,
+         host_libraries=hosts, cuda_abi_checked_against=abi_header)
 
 
 def _libraries(cache_dir: str) -> dict:
@@ -696,6 +713,250 @@ def phase_lstm_grad() -> dict:
     return report
 
 
+#: the enforcement phase's slice: a 4 GiB cap, filled in 512 MiB tensors
+ENFORCE_CAP = 4 << 30
+ENFORCE_CHUNK = 512 << 20
+#: how far the shim's charge may be from the allocator's reserve plus the
+#: context: one segment of PyTorch's medium pool (kLargeBuffer, 20 MiB)
+ENFORCE_SLACK = 20 << 20
+#: seconds each leg of the K2 duty loop is timed
+K2_LOOP_S = 1.0
+
+
+def _kill_switch_child(cap: int) -> dict:
+    """Under ``VTPU_DISABLE_CONTROL=true``: the driver reached through
+    ctypes (dlsym on libcuda.so.1, which the shim passes through), the
+    card's whole memory, and an allocation past the cap admitted."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+    ctx, ptr = ctypes.c_void_p(), ctypes.c_uint64()
+    free, total = ctypes.c_size_t(), ctypes.c_size_t()
+    rcs = [cuda.cuInit(0),
+           cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), 0),
+           cuda.cuCtxSetCurrent(ctx),
+           cuda.cuMemGetInfo_v2(ctypes.byref(free), ctypes.byref(total)),
+           cuda.cuMemAlloc_v2(ctypes.byref(ptr),
+                              ctypes.c_size_t(cap + ENFORCE_CHUNK))]
+    cache = os.path.join(os.environ["VTPU_DEVICE_MEMORY_SHARED_CACHE"],
+                         "vtpu.cache")
+    return {"rcs": rcs, "total": total.value, "free": free.value,
+            "allocated": cap + ENFORCE_CHUNK,
+            "region_exists": os.path.exists(cache)}
+
+
+def _fill(region, dev, limit: int) -> dict:
+    """512 MiB tensors until the shim refuses one or ``limit`` are held:
+    the allocator's reserve and the region's usage after each."""
+    import torch
+    from k8s_device_plugin_torch import bench
+    cap = int(os.environ["VTPU_DEVICE_MEMORY_LIMIT_0"])
+    tensors, steps, refused = [], [], None  # freed on return
+    while len(tensors) < limit:
+        try:
+            tensors.append(torch.empty(ENFORCE_CHUNK, dtype=torch.uint8,
+                                       device=dev))
+        except torch.OutOfMemoryError:
+            refused = len(tensors)
+            break
+        steps.append((torch.cuda.memory_reserved(dev),
+                      region.device_used(0)))
+    used, spill, violations = bench.shim_accounting(region, cap, dev)
+    return {"refused_at": refused, "allocations": len(tensors),
+            "reserved": [r for r, _ in steps], "used": [u for _, u in steps],
+            "reserved_at_end": torch.cuda.memory_reserved(dev),
+            "used_at_end": region.device_used(0),
+            "max_reserved": torch.cuda.max_memory_reserved(dev),
+            "mem_get_info": list(torch.cuda.mem_get_info(dev)),
+            "spill": spill, "violations": violations, "final_used": used}
+
+
+def _k2_loop(region, dev) -> dict:
+    """K2 at case 5.1 against its plain version under the shim, then its
+    own entry on preallocated outputs in a loop for ``K2_LOOP_S``: the loop
+    launches faster than the card runs the kernel, so uncapped it is bound
+    by the card, and a core limit's share shows in its rate. Under a
+    limit, the bucket's burst is spent first."""
+    import torch
+    from k8s_device_plugin_torch import _build, bench
+    from k8s_device_plugin_torch.workloads import pallas_ops
+    args = _lstm_args(*LSTM_CASE, torch.bfloat16)
+    x, h, c, wx, wh, b = args
+    err = max(check_close(f"lstm_cell under the shim {name}", g, w, 2e-2)
+              for name, g, w in zip("hc", pallas_ops.lstm_cell(*args),
+                                    pallas_ops.lstm_cell_reference(*args)))
+    lib = _build.load("lstm_cell", pallas_ops._ARGTYPES)
+    route = pallas_ops.cell_route(x, h, wx, wh)
+    h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+    batch, features, hidden = LSTM_CASE
+    call = [pallas_ops.ROUTES[route], x.data_ptr(), h.data_ptr(),
+            c.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+            h_out.data_ptr(), c_out.data_ptr(), batch, features, hidden,
+            torch.cuda.current_stream(dev).cuda_stream]
+
+    def launch():
+        _build.check(lib, lib.vtpu_lstm_cell(*call), "lstm_cell loop")
+    pct = region.data.sm_limit[0]
+    drained = bench.drain_bucket(region, launch) if 0 < pct < 100 else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    while time.perf_counter() - t0 < K2_LOOP_S:
+        for _ in range(20):
+            launch()
+        n += 20
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"route": route, "max_abs_err": err, "core_limit": pct,
+            "drain_calls": drained,
+            "tokens_after": region.data.duty_tokens_us[0], "launches": n,
+            "seconds": seconds, "launches_per_s": n / seconds}
+
+
+def _enforcement_child(case: str) -> int:
+    """One case of ``phase_enforcement_card``, in a process started with
+    the shim preloaded and the VTPU_* contract set (``bench._child_env``);
+    prints one JSON line. ``main``: 512 MiB tensors until the shim
+    refuses one (before anything else is allocated), then, with them
+    freed, K1, K2 and K3 against their plain versions and the K2 loop;
+    ``capped`` (under a core limit and ``VTPU_OVERSUBSCRIBE``): the K2
+    loop, then the tensors past the cap; ``disabled``: the kill switch."""
+    cap = int(os.environ["VTPU_DEVICE_MEMORY_LIMIT_0"])
+    out = {"case": case}
+    if case == "disabled":
+        out.update(_kill_switch_child(cap))
+        print(json.dumps(out), flush=True)
+        return 0
+    import numpy as np
+    import torch
+    from k8s_device_plugin_torch import bench
+    from k8s_device_plugin_torch.monitor import dutyprobe
+    from k8s_device_plugin_torch.shm.region import KIND_CONTEXT
+    from k8s_device_plugin_torch.workloads import run
+    dev = torch.device("cuda")
+    region = bench.shim_region(cap, dev)
+    slot = next(p for p in region.active_procs() if p.pid == os.getpid())
+    out["context_bytes"] = slot.used[0].kinds[KIND_CONTEXT]
+    del slot
+    if case == "main":
+        out["fill"] = _fill(region, dev, 64)
+        torch.cuda.empty_cache()
+        # K1 (a static-cudart library's launches) and K3 at the LM case
+        xw = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in dutyprobe.probe_operands(128)]
+        out["probe_chain_err"] = check_close(
+            "probe_chain under the shim", dutyprobe.probe_chain(*xw, 16),
+            dutyprobe.probe_chain_reference(*xw, 16), 1e-4)
+        heads, width, _, _ = run.LM_CONFIG
+        batch, _, seq = run.CASES["lm"]
+        args = _flash_args(batch, seq, seq, heads, width // heads,
+                           torch.bfloat16, 11, True)
+        out["flash_absorb"] = {
+            f"kind{kind}": _absorb_checked(
+                f"flash_absorb under the shim kind {kind}", args, kind, 2e-2)
+            for kind in (1, 2)}
+        del xw, args
+        out["k2"] = _k2_loop(region, dev)
+    elif case == "capped":
+        out["k2"] = _k2_loop(region, dev)
+        out["fill"] = _fill(region, dev, ENFORCE_CAP // ENFORCE_CHUNK + 4)
+    else:
+        raise SystemExit(f"no enforcement case {case}")
+    region.close()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _run_wrapped(case: str, workdir: str, shim: str, extra: dict) -> dict:
+    """``_enforcement_child(case)`` in a fresh process under the shim, with
+    a region of its own and the enforcement phase's cap; its line."""
+    from k8s_device_plugin_torch import bench
+    cache = tempfile.mkdtemp(prefix=f"{case}-", dir=workdir)
+    env = bench._child_env({"VTPU_DEVICE_MEMORY_SHARED_CACHE": cache,
+                            "VTPU_DEVICE_MEMORY_LIMIT_0": str(ENFORCE_CAP),
+                            **extra}, shim)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--enforcement-child", case], env=env, cwd=HERE,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"enforcement {case}: rc={proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_enforcement_card(card: str) -> dict:
+    """The enforcement shim (``libvtpu_cuda.so``) on the card, in three
+    fresh processes under it with a 4 GiB cap each: K1, K2 and K3 under it
+    against their plain versions; a K2 launch loop at case 5.1 under
+    ``VTPU_DEVICE_CORE_LIMIT=50`` against one without a limit, the rate
+    ratio inside ``bench.DUTY_BAND``; 512 MiB tensors until the shim
+    refuses one (``torch.OutOfMemoryError``), with the allocator's reserve
+    and the region's usage never above the cap, the usage equal to the
+    reserve plus the charged context within one segment, and the card
+    reporting the cap as its total; the same past the cap under
+    ``VTPU_OVERSUBSCRIBE=1`` (spill, no refusal, no violation); and the
+    kill switch, under which the whole card shows and nothing is refused.
+    Every line carries the card's name and power limit."""
+    from k8s_device_plugin_torch import _build, bench
+    t0 = time.perf_counter()
+    shim = _build.host_library("vtpu_cuda")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-enforce-") as tmp:
+        main = _run_wrapped("main", tmp, shim, {})
+        capped = _run_wrapped("capped", tmp, shim,
+                              {"VTPU_DEVICE_CORE_LIMIT": "50",
+                               "VTPU_OVERSUBSCRIBE": "1"})
+        off = _run_wrapped("disabled", tmp, shim,
+                           {"VTPU_DISABLE_CONTROL": "true"})
+
+    emit("enforcement_kernels", card=card,
+         probe_chain_err=main["probe_chain_err"],
+         flash_absorb=main["flash_absorb"],
+         lstm_cell_err=main["k2"]["max_abs_err"])
+
+    k2, ratio = main["k2"], (capped["k2"]["launches_per_s"]
+                             / main["k2"]["launches_per_s"])
+    emit("enforcement_duty_k2", card=card, shape=LSTM_CASE,
+         route=k2["route"], ratio=ratio, band=list(bench.DUTY_BAND),
+         uncapped=k2, capped50=capped["k2"])
+    if not bench.DUTY_BAND[0] <= ratio <= bench.DUTY_BAND[1]:
+        raise AssertionError(f"K2 duty under the shim: ratio {ratio} "
+                             f"outside {bench.DUTY_BAND}")
+
+    fill, ctx = main["fill"], main["context_bytes"]
+    gap = [u - (r + ctx) for r, u in zip(fill["reserved"], fill["used"])]
+    emit("enforcement_oom", card=card, cap=ENFORCE_CAP, chunk=ENFORCE_CHUNK,
+         refused_at=fill["refused_at"],
+         reserved_at_refusal=fill["reserved_at_end"],
+         used_at_refusal=fill["used_at_end"],
+         max_reserved=fill["max_reserved"], context_bytes=ctx,
+         used_minus_reserved_and_context=gap,
+         mem_get_info=fill["mem_get_info"])
+    if not (fill["refused_at"] and fill["max_reserved"] <= ENFORCE_CAP
+            and max(fill["used"]) <= ENFORCE_CAP
+            and fill["used_at_end"] <= ENFORCE_CAP
+            and all(abs(g) <= ENFORCE_SLACK for g in gap)
+            and fill["mem_get_info"][1] == ENFORCE_CAP
+            and fill["violations"] == 0):
+        raise AssertionError(f"enforcement oom: {fill}")
+
+    fill = capped["fill"]
+    emit("enforcement_oversubscribe", card=card, cap=ENFORCE_CAP,
+         allocations=fill["allocations"], refused_at=fill["refused_at"],
+         spill=fill["spill"], violations=fill["violations"],
+         final_used=fill["final_used"],
+         context_bytes=capped["context_bytes"])
+    if not (fill["refused_at"] is None and fill["spill"] > 0
+            and fill["violations"] == 0):
+        raise AssertionError(f"enforcement oversubscribe: {fill}")
+
+    emit("enforcement_kill_switch", card=card, **off)
+    if not (off["rcs"] == [0] * 5 and off["total"] > ENFORCE_CAP
+            and not off["region_exists"]):
+        raise AssertionError(f"enforcement kill switch: {off}")
+    seconds = time.perf_counter() - t0
+    emit("enforcement_card", card=card, seconds=seconds)
+    return {"k2_ratio": ratio, "seconds": seconds}
+
+
 def _runner_line(argv) -> dict:
     """run.main(argv) with its stdout captured; its last JSON line."""
     from k8s_device_plugin_torch.workloads import run
@@ -733,10 +994,13 @@ def _counting(by_path: dict):
 
 def phase_main_path() -> dict:
     """ResNet-50 native + 4-way share with the probe, then the bench's
-    oversubscribe phase and duty check, LSTM case 5.1 and the LM (infer,
-    then decode) through the runner, and the train paths. Every launch
-    counter is set to 0 just before each path and read just after;
-    returns each kernel's launches by path."""
+    oversubscribe phase and duty check, every share child under the
+    enforcement shim (``--child-mode wrapped``, the bench's default on a
+    card); the share once more under the cooperative limiter (``plain``)
+    in the same run, so the shim's cost stands beside it; LSTM case 5.1
+    and the LM (infer, then decode) through the runner, and the train
+    paths. Every launch counter is set to 0 just before each path and read
+    just after; returns each kernel's launches by path."""
     from k8s_device_plugin_torch import bench
 
     counters = _counters()
@@ -751,11 +1015,14 @@ def phase_main_path() -> dict:
     t0 = time.perf_counter()
     result = counted("resnet50_share", share)
     extra = result["extra"]
+    if extra["enforcement"] != "wrapped":
+        raise AssertionError(f"the share ran {extra['enforcement']}")
     emit("resnet50_native", img_per_s=extra["native_img_per_s"],
          best_pass_img_per_s=extra["native_best_pass_img_per_s"],
          batch=extra["batch"], image_size=extra["image_size"],
          flops_per_img=extra["flops_per_img"], device=extra["device"])
     emit("resnet50_share", share_procs=extra["share_procs"],
+         enforcement=extra["enforcement"],
          img_per_s=result["value"], vs_baseline=result["vs_baseline"],
          images=extra["images"], window_s=extra["window_s"],
          per_proc_img_per_s=extra["per_proc_img_per_s"],
@@ -790,6 +1057,26 @@ def phase_main_path() -> dict:
     if not duty["within_band"]:
         raise AssertionError(f"duty check: capped/uncapped {duty['ratio']} "
                              f"outside {bench.DUTY_BAND}")
+
+    # the same share under the cooperative limiter, beside the wrapped one
+    def plain_share():
+        args = bench.parse_args(["--child-mode", "plain"])
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as workdir:
+            return bench.run_share(args, extra["total_bytes"], workdir)
+
+    t0 = time.perf_counter()
+    plain = counted("resnet50_share_plain", plain_share)
+    emit("resnet50_share_plain", enforcement="plain",
+         share_procs=plain["share_procs"], img_per_s=plain["img_per_s"],
+         vs_baseline=plain["img_per_s"] / extra["native_img_per_s"],
+         wrapped_img_per_s=result["value"],
+         wrapped_over_plain=result["value"] / plain["img_per_s"],
+         per_proc_img_per_s=plain["per_proc_img_per_s"],
+         hbm_used_bytes=plain["hbm_used_bytes"],
+         violations=plain["violations"], seconds=time.perf_counter() - t0)
+    if plain["violations"] != 0:
+        raise AssertionError(f"plain share: {plain['violations']} "
+                             f"violations")
 
     line = counted("lstm_case_5_1",
                    lambda: _runner_line(["--model", "lstm"]))
@@ -1868,7 +2155,7 @@ def main() -> int:
     os.chdir(HERE)  # the bench's children import the port from here
 
     t0 = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     phase_compile_cache()
     kernels = {"probe_chain": phase_probe_kernel(),
@@ -1876,6 +2163,7 @@ def main() -> int:
                "flash_absorb": phase_flash_kernel()}
     attention = phase_flash_grad()
     phase_lstm_grad()
+    phase_enforcement_card(card)
     by_path = phase_main_path()
     by_path.update(phase_multichip_card())
     by_path.update(phase_multichip_moe())
@@ -1901,4 +2189,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--enforcement-child"]:
+        sys.exit(_enforcement_child(sys.argv[2]))
     sys.exit(main())

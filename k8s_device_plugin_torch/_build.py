@@ -8,6 +8,12 @@ build in parallel, one ``nvcc`` each. Nothing is built when this module is
 imported: the first launch of a kernel (or an explicit :func:`build_all`)
 builds it. :func:`set_build_dir` moves the libraries elsewhere (the compile
 cache, ``workloads/harness.setup_compile_cache``) before the first load.
+
+The host libraries (``csrc/*.c``, :data:`HOST_LIBRARIES`: the enforcement
+shim, the shared region's primitives, the mock driver) build the same way
+with the C compiler, at first use (:func:`host_library`), into the same
+directory under a hash of their sources, every ``csrc/*.h`` and the flags.
+They need no CUDA toolkit. nvcc never sees them.
 """
 
 from __future__ import annotations
@@ -27,6 +33,18 @@ DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
 BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: host libraries: name -> their C sources in ``csrc``. ``vtpu_cuda`` is
+#: the enforcement shim (LD_PRELOAD), ``vtpu_shm`` the shared region's
+#: primitives without the shim (``shm/region.py`` loads it), ``cuda_mock``
+#: a CUDA driver test double
+HOST_LIBRARIES = {
+    "vtpu_cuda": ("vtpu_cuda_preload.c", "vtpu_shm.c"),
+    "vtpu_shm": ("vtpu_shm.c",),
+    "cuda_mock": ("mock_cuda.c",),
+}
+CC_FLAGS = ("-std=gnu11", "-O2", "-g", "-Wall", "-Wextra", "-fPIC", "-shared")
+CC_LIBS = ("-ldl", "-lpthread")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -57,16 +75,80 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def _hashed(name: str, files: list[str], header_ext: str,
+            flags: tuple) -> str:
+    digest = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR)
+                     if f.endswith(header_ext))
+    for fname in [*files, *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
 def _target(name: str) -> str:
     """The library path for ``name``: its hash covers ``<name>.cu``, every
     ``*.cuh`` beside it (any source may include any of them) and the
     flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
-            digest.update(fname.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return _hashed(name, [f"{name}.cu"], ".cuh", NVCC_FLAGS)
+
+
+def _host_target(name: str) -> str:
+    """The host library path for ``name``: its hash covers its sources,
+    every ``*.h`` in ``csrc`` and the flags."""
+    return _hashed(name, list(HOST_LIBRARIES[name]), ".h",
+                   CC_FLAGS + CC_LIBS)
+
+
+def _cc() -> str:
+    for cand in ("cc", "gcc", "clang"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C compiler found: the host libraries build with "
+                       "cc")
+
+
+def host_library(name: str) -> str:
+    """The path of host library ``name`` (:data:`HOST_LIBRARIES`), built
+    with the C compiler if it has no current build. Raises with the
+    compiler's output when the build fails."""
+    with _LOCK:
+        out = _host_target(name)
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = [_cc(), *CC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC_DIR, f) for f in HOST_LIBRARIES[name]),
+               *CC_LIBS]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cc failed for {name} (rc={proc.returncode})"
+                               f":\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+        return out
+
+
+def check_cuda_abi() -> str:
+    """Compile ``csrc/cuda_abi_check.c`` against the toolkit's ``cuda.h``
+    (under ``$CUDA_HOME``, default ``/usr/local/cuda``): it
+    static-asserts that ``cuda_driver_abi.h`` declares every type, enum
+    value, struct field and prototype as the toolkit does. Returns the
+    header's path; raises with the compiler's output on a mismatch."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    header = os.path.join(home, "include", "cuda.h")
+    if not os.path.exists(header):
+        raise RuntimeError(f"no cuda.h under {home}")
+    proc = subprocess.run(
+        [_cc(), "-std=gnu11", "-fsyntax-only",
+         "-I", os.path.join(home, "include"),
+         os.path.join(CSRC_DIR, "cuda_abi_check.c")],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("cuda_driver_abi.h differs from the toolkit's "
+                           f"cuda.h:\n{proc.stdout}{proc.stderr}")
+    return header
 
 
 def build_all(names: list[str] | None = None) -> dict[str, str]:

@@ -3,10 +3,23 @@
 Counterpart of the repo root's ``bench.py``: ai-benchmark case 1.1
 (ResNet-V2-50 bf16 inference, batch 50 @ 346x346) runs once natively and
 once as ``--share-procs`` concurrent processes on one card, each capped at
-1/``--share`` of device memory under the cooperative limiter, which writes
-the shared region the monitor reads. While the share runs, the monitor's
-duty probe (calibrated on the idle card) samples how much of the card the
+1/``--share`` of device memory. While the share runs, the monitor's duty
+probe (calibrated on the idle card) samples how much of the card the
 tenants leave free.
+
+The share, the oversubscribe phase and the duty check run each child
+under ``--child-mode``: ``wrapped`` (the default on a card) executes under
+the production enforcement path, the shim ``libvtpu_cuda.so`` in
+``LD_PRELOAD`` with the ``VTPU_*`` contract a vTPU container receives at
+Allocate time, as the JAX bench loads ``libvtpu.so``; it refuses an
+allocation past the cap and charges every launch to the duty-cycle
+bucket. ``plain`` (the default on the CPU, where there is nothing to
+interpose) runs the cooperative limiter instead, which bounds PyTorch's
+allocator and charges each call's device time (``_metered``). A wrapped
+child first checks that the shim is live (the card reports the cap as its
+total, and the region holds the child), since the shim fails open by
+design. There is no fallback from one mode to the other. The native run
+is never wrapped.
 
 Usage: ``python -m k8s_device_plugin_torch.bench [--quick] [--device cpu]``.
 Prints ONE JSON line: ``{"metric", "value": aggregate img/s under the
@@ -65,9 +78,19 @@ def parse_args(argv=None):
     p.add_argument("--share-procs", type=int, default=4,
                    help="concurrent capped share processes")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--child-mode", choices=["wrapped", "plain"],
+                   default=None,
+                   help="enforcement of the share children: the shim "
+                        "(wrapped, the default on a card) or the "
+                        "cooperative limiter (plain, the default on the "
+                        "CPU)")
     p.add_argument("--child-phase", choices=["native", "share"],
                    default=None, help=argparse.SUPPRESS)
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.child_mode is None:
+        args.child_mode = ("wrapped" if torch.device(args.device).type
+                           == "cuda" else "plain")
+    return args
 
 
 def _bench_shapes(args) -> tuple[int, int, int]:
@@ -123,13 +146,13 @@ def _barrier_wait() -> None:
 
 
 def _metered(infer, limiter, device):
-    """``infer`` charged to the limiter's duty-cycle bucket, the
-    counterpart of the JAX bench's C wrapper, which meters each execution:
-    before each call, ``throttle`` takes the previous call's own device
-    time (CUDA events around it; on the CPU its wall time), so the call
-    waits until the bucket has refilled for it. A cost above the bucket's
-    capacity is charged in whole-capacity pieces (one such request would
-    never be granted)."""
+    """``infer`` charged to the limiter's duty-cycle bucket in a ``plain``
+    child, where no shim meters the launches: before each call,
+    ``throttle`` takes the previous call's own device time (CUDA events
+    around it; on the CPU its wall time), so the call waits until the
+    bucket has refilled for it. A cost above the bucket's capacity is
+    charged in whole-capacity pieces (one such request would never be
+    granted)."""
     from .shm.limiter import BUCKET_CAPACITY_US
     cuda = device.type == "cuda"
     last = None
@@ -175,6 +198,62 @@ def memory_accounting(limiter, cap: int, device) -> tuple[int, int, int]:
     return used, 0, limiter.violations + (1 if peak_over else 0)
 
 
+def shim_region(cap: int, device):
+    """The shared region of a wrapped child, once the shim is shown live:
+    the card reports ``cap`` as its total memory and the region holds this
+    process. Raises SystemExit otherwise: the shim fails open by design,
+    so a child it does not hold must not measure unenforced."""
+    from .shm.region import Region
+    if device.type != "cuda":
+        raise SystemExit("wrapped child: the shim enforces on a CUDA "
+                         f"device, not {device}")
+    cache = os.environ.get("VTPU_DEVICE_MEMORY_SHARED_CACHE")
+    total = torch.cuda.mem_get_info(device)[1]
+    if not cache or total != cap:
+        raise SystemExit(f"wrapped child: the shim is not live (the card "
+                         f"reports {total} bytes, the cap is {cap})")
+    region = Region(os.path.join(cache, "vtpu.cache"), create=False)
+    if os.getpid() not in [p.pid for p in region.active_procs()]:
+        region.close()
+        raise SystemExit("wrapped child: the shim is not live (its region "
+                         "holds no slot of this process)")
+    return region
+
+
+def drain_bucket(region, call, dev: int = 0, seconds: float = 10.0) -> int:
+    """``call()`` until the shim's duty-cycle bucket holds less than a
+    tenth of its capacity, or for ``seconds``: the burst the bucket starts
+    with is spent, and a timed window after it runs at the capped rate
+    from its first call. A tenant that keeps the card busy for less than
+    its cap never drains the bucket (the cap does not bind it), so the
+    time bound ends the wait. Returns the calls made."""
+    from .shm.limiter import BUCKET_CAPACITY_US
+    data = region.data
+    deadline = time.monotonic() + seconds
+    calls = 0
+    while time.monotonic() < deadline:
+        if data.duty_refill_us[dev] and \
+                data.duty_tokens_us[dev] < BUCKET_CAPACITY_US // 10:
+            break
+        call()
+        calls += 1
+    return calls
+
+
+def shim_accounting(region, cap: int, device) -> tuple[int, int, int]:
+    """(used, spill, violations) of a wrapped child once its window is
+    over: used is what the shim charged the region (the allocator's
+    device memory and the context). Under ``VTPU_OVERSUBSCRIBE`` usage
+    above the cap is spill and no violation; otherwise usage or the
+    allocator's peak above the cap is one."""
+    used = region.device_used(0)
+    if region.data.oversubscribe:
+        return used, max(0, used - cap) if cap else 0, 0
+    over = cap and (used > cap
+                    or torch.cuda.max_memory_reserved(device) > cap)
+    return used, 0, 1 if over else 0
+
+
 def child_main(args) -> int:
     from .shm.limiter import BUCKET_CAPACITY_US, CooperativeLimiter
     from .workloads import harness
@@ -184,8 +263,11 @@ def child_main(args) -> int:
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
-    limiter = None
-    if args.child_phase == "share":
+    cap = int(os.environ.get("VTPU_DEVICE_MEMORY_LIMIT_0", "0"))
+    limiter = region = None
+    if args.child_phase == "share" and args.child_mode == "wrapped":
+        region = shim_region(cap, device)
+    elif args.child_phase == "share":
         # before the first allocation, so the allocator bound holds from
         # the start
         limiter = CooperativeLimiter(poll_interval=0.2)
@@ -197,8 +279,9 @@ def child_main(args) -> int:
     x = torch.ones(batch, size, size, 3, dtype=torch.bfloat16, device=device)
     infer = harness.make_infer_fn(model)
     flops = harness.count_flops(model, x) / batch  # also the first call
-    # a child under a core limit (the duty check pins one on both legs)
-    # meters every call; the others run unmetered
+    # a plain child under a core limit (the duty check pins one on both
+    # legs) meters every call; the others run unmetered, and a wrapped
+    # child's launches are charged by the shim
     metered = limiter is not None and "VTPU_DEVICE_CORE_LIMIT" in os.environ
     if metered:
         infer = _metered(infer, limiter, device)
@@ -207,11 +290,13 @@ def child_main(args) -> int:
         raise SystemExit(f"bench child: bad logits {tuple(logits.shape)}")
     _compile_lock_release(lock_fd)
     _barrier_wait()
+    # the bucket starts full, a burst of BUCKET_CAPACITY_US (0.2 s) of
+    # device time, more than a quick tier's window holds: drain it, so the
+    # timed window runs at the capped rate from its first call
     if metered:
-        # the bucket starts full, a burst of BUCKET_CAPACITY_US (0.2 s) of
-        # device time, more than a quick tier's window holds: drain it, so
-        # the timed window runs at the capped rate from its first call
         limiter.throttle(BUCKET_CAPACITY_US)
+    elif region is not None and 0 < region.data.sm_limit[0] < 100:
+        drain_bucket(region, lambda: infer(x))
     # warm already (count_flops and the check above ran the model twice);
     # wall-clock ends so the supervisor can line the windows up
     start = time.time()
@@ -220,10 +305,12 @@ def child_main(args) -> int:
     end = time.time()
 
     used = spill = violations = 0
-    cap = int(os.environ.get("VTPU_DEVICE_MEMORY_LIMIT_0", "0"))
     if limiter is not None:
         used, spill, violations = memory_accounting(limiter, cap, device)
         limiter.uninstall()
+    elif region is not None:
+        used, spill, violations = shim_accounting(region, cap, device)
+        region.close()
     cuda = device.type == "cuda"
     images = batch * iters * PASSES
     print(json.dumps({
@@ -250,7 +337,8 @@ def child_main(args) -> int:
 
 def _child_cmd(phase: str, args) -> list[str]:
     cmd = [sys.executable, "-m", "k8s_device_plugin_torch.bench",
-           "--child-phase", phase, "--device", args.device]
+           "--child-phase", phase, "--child-mode", args.child_mode,
+           "--device", args.device]
     if args.quick:
         cmd.append("--quick")
     for flag, val in (("--batch", args.batch),
@@ -261,13 +349,22 @@ def _child_cmd(phase: str, args) -> list[str]:
     return cmd
 
 
-def _child_env(extra: dict[str, str]) -> dict[str, str]:
+def _child_env(extra: dict[str, str], shim: str | None = None
+               ) -> dict[str, str]:
+    """A child's environment: the contract in ``extra`` and no inherited
+    one; the shim preloaded when ``shim`` is its path (a wrapped share
+    child), and never otherwise (the native run)."""
     env = dict(os.environ)
     # a child starts from the contract it is given, never an inherited one
     for var in ("VTPU_DEVICE_MEMORY_SHARED_CACHE", "VTPU_DEVICE_MEMORY_LIMIT_0",
                 "VTPU_DEVICE_CORE_LIMIT", "VTPU_OVERSUBSCRIBE",
                 "VTPU_DISABLE_CONTROL"):
         env.pop(var, None)
+    from .shm.limiter import is_shim
+    preload = [p for p in env.pop("LD_PRELOAD", "").replace(":", " ").split()
+               if not is_shim(p)]
+    if shim or preload:
+        env["LD_PRELOAD"] = " ".join(([shim] if shim else []) + preload)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (root, env.get("PYTHONPATH", "")) if p)
@@ -283,11 +380,15 @@ def _run_children(phase: str, args, envs: list[dict], workdir: str,
     child fails; kills the rest on the way out."""
     procs = []
     label = label or phase
+    shim = None
+    if phase == "share" and args.child_mode == "wrapped":
+        from . import _build
+        shim = _build.host_library("vtpu_cuda")
     try:
         for i, extra in enumerate(envs):
             log = open(os.path.join(workdir, f"{label}{i}.stderr"), "w")
             procs.append((subprocess.Popen(
-                _child_cmd(phase, args), env=_child_env(extra),
+                _child_cmd(phase, args), env=_child_env(extra, shim),
                 stdout=subprocess.PIPE, stderr=log, text=True), log))
         barrier = envs[0].get("VTPU_BENCH_BARRIER", "").rsplit(":", 1)[0]
         stop = threading.Event()
@@ -498,7 +599,7 @@ def assemble(args, native: dict, share: dict, probe, runner,
             "image_size": native["image_size"],
             "platform": share["platform"],
             "device": native["device"],
-            "enforcement": "cooperative",
+            "enforcement": args.child_mode,
             "share_procs": share["share_procs"],
             "flops_per_img": flops_img,
             "achieved_tflops": achieved / 1e12,

@@ -1,8 +1,10 @@
 """Cooperative in-container limiter for PyTorch/CUDA workloads.
 
-Counterpart of ``k8s_device_plugin_tpu/shm/limiter.py``: the same
+Counterpart of ``k8s_device_plugin_tpu/shm/limiter.py``: the fallback
+alongside the native shim (``csrc/vtpu_cuda_preload.c``), with the same
 ``VTPU_*`` env contract, the same shared region, the same duty-cycle token
-bucket. What changes is how the limiter sees and bounds device memory:
+bucket; observe-only when the shim is loaded. What changes is how the
+limiter sees and bounds device memory:
 
 * usage comes from PyTorch's caching allocator (``torch.cuda.memory_reserved``)
   and lands in the process's shared-region slot, so the monitor and limits
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 import threading
 import time
 
@@ -39,6 +42,13 @@ BUCKET_CAPACITY_US = 200000
 
 def _env_true(name: str) -> bool:
     return os.environ.get(name, "").lower() in ("1", "true", "on", "yes")
+
+
+def is_shim(path: str) -> bool:
+    """Whether ``path`` names the port's enforcement shim: installed as
+    ``libvtpu_cuda.so``, built as ``libvtpu_cuda-<hash>.so``."""
+    return re.fullmatch(r"libvtpu_cuda(-[0-9a-f]+)?\.so",
+                        os.path.basename(path)) is not None
 
 
 class CooperativeLimiter:
@@ -87,9 +97,9 @@ class CooperativeLimiter:
             # duty-cycle fairness vs C sharers needs the shared sem lock;
             # fcntl alone only excludes other Python processes
             log.warning(
-                "vtpu: libvtpu_shm.so not loadable — duty-cycle bucket "
-                "updates are not atomic vs native shim processes "
-                "(set VTPU_SHM_LIB or ship the lib next to libvtpu.so)")
+                "vtpu: the region's native primitives did not load — "
+                "duty-cycle bucket updates are not atomic vs native shim "
+                "processes (set VTPU_SHM_LIB, or install a C compiler)")
         self._thread = threading.Thread(target=self._poll_loop, daemon=True,
                                         name="vtpu-limiter")
         self._thread.start()
@@ -149,10 +159,11 @@ class CooperativeLimiter:
 
     @property
     def observe_only(self) -> bool:
-        """True when HAMi-core's ``libvgpu.so`` is preloaded: it owns the
-        accounting and maintains ``used`` itself, so the poll writes the
-        observed value into ``monitor_used`` instead of clobbering it."""
-        return any(p.endswith("libvgpu.so") for p in
+        """True when the port's enforcement shim (``libvtpu_cuda.so``) is
+        preloaded: it owns the accounting and maintains ``used`` (with the
+        kind breakdown) itself, so the poll writes the observed value into
+        ``monitor_used`` instead of clobbering it."""
+        return any(is_shim(p) for p in
                    os.environ.get("LD_PRELOAD", "").replace(":", " ").split())
 
     def poll_once(self, stats=None) -> list[int]:

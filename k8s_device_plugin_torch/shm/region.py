@@ -1,11 +1,13 @@
-"""Python mirror of the shared-region ABI (lib/tpu/vtpu_shm.h).
+"""Python mirror of the shared-region ABI (``csrc/vtpu_shm.h``, the port's
+copy of lib/tpu/vtpu_shm.h).
 
 A copy of ``k8s_device_plugin_tpu/shm/region.py`` for the port, which
-imports nothing of that package. The monitor reads (and writes feedback
-into) the same mmap the in-container shim maintains; this ctypes layout
-must match the C struct bit-for-bit — ``tests/test_torch_shm.py`` holds it
-field by field against the JAX package's mirror, which ``tests/test_shm.py``
-diffs against the ``vtpu_abi_dump`` binary.
+imports nothing of that package and loads no library of it. The monitor
+reads (and writes feedback into) the same mmap the in-container shim
+maintains; this ctypes layout must match the C struct bit-for-bit —
+``tests/test_torch_shm.py`` holds it field by field against the JAX
+package's mirror, and ``tests/test_torch_enforce.py`` against
+``vtpu_abi_dump`` built on both C headers.
 """
 
 from __future__ import annotations
@@ -108,28 +110,30 @@ class SharedRegion(ctypes.Structure):
 
 
 def _find_native_shm() -> ctypes.CDLL | None:
-    """Load libvtpu_shm.so (shm primitives, no shim constructor) if present.
+    """Load the shared region's primitives without the shim's constructor:
+    ``VTPU_SHM_LIB`` when set (a prebuilt library), else the port's own
+    build of ``csrc/vtpu_shm.c`` (``_build.host_library("vtpu_shm")``,
+    built with the C compiler at first use). None when neither loads.
 
     Gives Python access to the same pid-owner sem lock the C shim takes, so
     slot claiming in :meth:`Region.attach` is atomic across both languages.
     """
-    candidates = [os.environ.get("VTPU_SHM_LIB")]
-    here = os.path.dirname(os.path.abspath(__file__))
-    candidates.append(os.path.join(os.path.dirname(os.path.dirname(here)),
-                                   "lib", "tpu", "libvtpu_shm.so"))
-    candidates.append("/usr/local/vtpu/libvtpu_shm.so")
-    for path in candidates:
-        if path and os.path.exists(path):
-            try:
-                lib = ctypes.CDLL(path)
-                lib.vtpu_shm_lock.argtypes = [ctypes.c_void_p]
-                lib.vtpu_shm_lock.restype = None
-                lib.vtpu_shm_unlock.argtypes = [ctypes.c_void_p]
-                lib.vtpu_shm_unlock.restype = None
-                return lib
-            except (OSError, AttributeError):
-                continue  # unloadable, or a .so missing the lock symbols
-    return None
+    path = os.environ.get("VTPU_SHM_LIB")
+    if not path:
+        from .. import _build
+        try:
+            path = _build.host_library("vtpu_shm")
+        except RuntimeError:  # no C compiler, or the build failed
+            return None
+    try:
+        lib = ctypes.CDLL(path)
+        lib.vtpu_shm_lock.argtypes = [ctypes.c_void_p]
+        lib.vtpu_shm_lock.restype = None
+        lib.vtpu_shm_unlock.argtypes = [ctypes.c_void_p]
+        lib.vtpu_shm_unlock.restype = None
+        return lib
+    except (OSError, AttributeError):
+        return None  # unloadable, or a .so missing the lock symbols
 
 
 _NATIVE_SHM: ctypes.CDLL | None = None
@@ -147,15 +151,16 @@ def _native_shm() -> ctypes.CDLL | None:
 class Region:
     """mmap-backed view over a cache file (creates + inits when absent).
 
-    Concurrency contract (mirrors the C side, ``lib/tpu/vtpu_shm.c``):
+    Concurrency contract (mirrors the C side, ``csrc/vtpu_shm.c``):
 
     * init is guarded by a POSIX record lock on the cache file — the same
       lock family ``vtpu_shm_open`` holds — so a Python init can never race
       a C init and wipe a freshly initialized region;
     * :meth:`attach`/:meth:`detach` hold the file lock (vs other Python
-      processes) *and*, when ``libvtpu_shm.so`` is loadable, the in-region
-      pid-owner sem lock (vs C shim processes), making slot claiming atomic
-      across implementations.
+      processes) *and*, when the region's primitives load
+      (:func:`_find_native_shm`), the in-region pid-owner sem lock (vs C
+      shim processes), making slot claiming atomic across
+      implementations.
     """
 
     def __init__(self, path: str, create: bool = True):
@@ -227,7 +232,8 @@ class Region:
         still in its critical section — no exclusion against other
         processes. The thread lock spans the whole scope so the fcntl
         acquire/release stays balanced (one thread in at a time), and when
-        libvtpu_shm.so is unavailable it is still the in-process guard.
+        the native primitives are unavailable it is still the in-process
+        guard.
         """
         native = _native_shm()
         addr = ctypes.addressof(self.data)

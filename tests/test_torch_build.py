@@ -41,3 +41,23 @@ def test_headers_are_not_built_on_their_own(csrc):
 
 def test_the_shipped_sources_are_the_three_kernels():
     assert _build.sources() == ["flash_absorb", "lstm_cell", "probe_chain"]
+
+
+def test_host_libraries_build_with_cc_under_a_hash_of_their_sources(
+        csrc, tmp_path, monkeypatch):
+    """A host library (csrc/*.c) builds with the C compiler at first use,
+    into the build directory under a hash of its sources, every csrc/*.h
+    and the flags; an edited header builds it anew, and nvcc's list of
+    sources never shows it."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "HOST_LIBRARIES", {"host": ("host.c",)})
+    (csrc / "host.c").write_text(
+        '#include "host.h"\nint f(void) { return N; }\n')
+    (csrc / "host.h").write_text("#define N 1\n")
+    first = _build.host_library("host")
+    assert os.path.basename(first).startswith("libhost-")
+    assert os.path.exists(first) and _build.host_library("host") == first
+    (csrc / "host.h").write_text("#define N 2\n")
+    second = _build.host_library("host")
+    assert second != first and os.path.exists(second)
+    assert _build.sources() == ["kern"]

@@ -128,9 +128,12 @@ def test_kill_switch_and_missing_contract_disable_the_port(monkeypatch,
 
 @pytest.mark.parametrize("preload,observe", [
     ("", False),
-    ("/usr/local/vgpu/libvgpu.so", True),
-    ("/lib/libother.so:/usr/local/vgpu/libvgpu.so", True),
-    ("/usr/local/vgpu/libvgpu.so.bak", False),
+    ("/usr/local/vtpu/libvtpu_cuda.so", True),
+    ("/lib/libother.so:/usr/local/vtpu/libvtpu_cuda.so", True),
+    ("/usr/local/vtpu/libvtpu_cuda.so.bak", False),
+    ("/repo/build/kernels/libvtpu_cuda-0123456789abcdef.so", True),
+    # HAMi-core's shim never writes this region: the poll owns used
+    ("/usr/local/vgpu/libvgpu.so", False),
 ])
 def test_poll_once_against_a_fake_stats_source(monkeypatch, tmp_path,
                                                preload, observe):
@@ -144,7 +147,8 @@ def test_poll_once_against_a_fake_stats_source(monkeypatch, tmp_path,
             monkeypatch.setenv("LD_PRELOAD", preload)
             assert lim.observe_only is observe
         elif observe:
-            # the JAX limiter's observe-only signal is its PJRT wrapper
+            # the JAX limiter's observe-only signal is its PJRT wrapper,
+            # the port's its CUDA shim
             monkeypatch.setenv("TPU_LIBRARY_PATH", "/usr/local/vtpu/libvtpu.so")
         results.append((lim.poll_once(stats), _usage_view(lim)))
         lim.uninstall()

@@ -28,15 +28,22 @@ Phases, one JSON line each; any failure exits non-zero:
    attention's and SDPA's; the LSTM's gradients through K2 against the
    plain cell's at case 5.2;
 4b. enforcement (``enforcement_card``): the shim on the card, in fresh
-   processes under it with a 4 GiB cap: 512 MiB tensors until it refuses
-   one, the same past the cap under ``VTPU_OVERSUBSCRIBE=1``, a K2 launch
-   loop at core limit 50 against 0 (the ratio in the duty band), K1, K2
-   and K3 under it against their plain versions, and the kill switch;
-   every line with the card's name and power limit;
+   processes under it with a 5 GiB cap: 512 MiB tensors until it refuses
+   one (``used`` = reserve + context + device code), the same past the
+   cap under ``VTPU_OVERSUBSCRIBE=1``, a K2 launch loop at core limit 50
+   against 0 (the ratio in the duty band), K1, K2 and K3 under it against
+   their plain versions, the kill switch, and the module-memory charge
+   (``enforcement_module``): the loads the shim saw and the bytes it
+   charged by library, at each point of the main child and after a cuBLAS
+   product beside cuBLAS's own allocations, against the free bytes the
+   card lost under ``CUDA_MODULE_LOADING=EAGER``, and K3's load refused
+   at a cap just above what its child holds; every line with the card's
+   name and power limit;
 5-12. the main paths, each with every launch counter set to 0 just before
    it and read just after: ResNet-50 bf16 at ai-benchmark case 1.1
    (batch 50 @ 346) natively and as a 4-way share under the enforcement
-   shim with the duty probe sampling beside it, then the bench's
+   shim with the duty probe sampling beside it (each child's device code
+   charged, in every bench phase's line), then the bench's
    oversubscribe phase (10 replicas at 8 @ 64 past a 64 MiB cap under
    ``VTPU_OVERSUBSCRIBE=1``: spill above 0, no violation) and its duty
    check (case 1.1 at core limit 0 and 50: the ratio in [0.35, 0.65]),
@@ -93,6 +100,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -713,12 +721,25 @@ def phase_lstm_grad() -> dict:
     return report
 
 
-#: the enforcement phase's slice: a 4 GiB cap, filled in 512 MiB tensors
-ENFORCE_CAP = 4 << 30
+#: the enforcement phase's slice: a 5 GiB cap, filled in 512 MiB tensors;
+#: it also holds K3's plain version at the LM case (3 GiB of fp32 scores)
+#: beside the context and the device code the child loads
+ENFORCE_CAP = 5 << 30
 ENFORCE_CHUNK = 512 << 20
 #: how far the shim's charge may be from the allocator's reserve plus the
-#: context: one segment of PyTorch's medium pool (kLargeBuffer, 20 MiB)
+#: context and the device code: one segment of PyTorch's medium pool
+#: (kLargeBuffer, 20 MiB)
 ENFORCE_SLACK = 20 << 20
+#: the refused load: the cap is set this far above what the child holds,
+#: below the charge of K3's library
+REFUSE_MARGIN = 4 << 10
+#: the EAGER child's cap, above the card's memory: cuMemGetInfo then
+#: reports the card's free bytes, not the slice's
+EAGER_CAP = 1 << 40
+#: the EAGER windows large enough to read against the card's free bytes
+#: (the driver places device code in pages of its own, so a window of a
+#: few hundred KB can lose no free bytes at all) must agree within 2x
+EAGER_BAND = (0.5, 2.0)
 #: seconds each leg of the K2 duty loop is timed
 K2_LOOP_S = 1.0
 
@@ -744,11 +765,22 @@ def _kill_switch_child(cap: int) -> dict:
             "region_exists": os.path.exists(cache)}
 
 
+def _own_kinds(region) -> list:
+    """This process's usage on ordinal 0 by kind, as the shim charged it
+    (indexed by ``KIND_CONTEXT``, ``KIND_MODULE``, ``KIND_BUFFER``)."""
+    slot = next(p for p in region.active_procs() if p.pid == os.getpid())
+    kinds = [int(k) for k in slot.used[0].kinds]
+    del slot  # no view of the mapping outlives the call
+    return kinds
+
+
 def _fill(region, dev, limit: int) -> dict:
     """512 MiB tensors until the shim refuses one or ``limit`` are held:
-    the allocator's reserve and the region's usage after each."""
+    the allocator's reserve, the region's usage and the device code
+    charged after each."""
     import torch
     from k8s_device_plugin_torch import bench
+    from k8s_device_plugin_torch.shm.region import KIND_MODULE
     cap = int(os.environ["VTPU_DEVICE_MEMORY_LIMIT_0"])
     tensors, steps, refused = [], [], None  # freed on return
     while len(tensors) < limit:
@@ -759,10 +791,12 @@ def _fill(region, dev, limit: int) -> dict:
             refused = len(tensors)
             break
         steps.append((torch.cuda.memory_reserved(dev),
-                      region.device_used(0)))
+                      region.device_used(0), _own_kinds(region)[KIND_MODULE]))
     used, spill, violations = bench.shim_accounting(region, cap, dev)
     return {"refused_at": refused, "allocations": len(tensors),
-            "reserved": [r for r, _ in steps], "used": [u for _, u in steps],
+            "reserved": [r for r, _, _ in steps],
+            "used": [u for _, u, _ in steps],
+            "module": [m for _, _, m in steps],
             "reserved_at_end": torch.cuda.memory_reserved(dev),
             "used_at_end": region.device_used(0),
             "max_reserved": torch.cuda.max_memory_reserved(dev),
@@ -812,53 +846,165 @@ def _k2_loop(region, dev) -> dict:
             "seconds": seconds, "launches_per_s": n / seconds}
 
 
+def _kernel_inputs(dev) -> tuple:
+    """K1's operands, K3's inputs at the LM case and K2's at case 5.1, on
+    the card: ``({name: a launch of it}, K1's operands, K3's inputs)``."""
+    import numpy as np
+    import torch
+    from k8s_device_plugin_torch.monitor import dutyprobe
+    from k8s_device_plugin_torch.workloads import flash, pallas_ops, run
+    xw = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in dutyprobe.probe_operands(128)]
+    heads, width, _, _ = run.LM_CONFIG
+    batch, _, seq = run.CASES["lm"]
+    q, k, v, m, l, o = _flash_args(batch, seq, seq, heads, width // heads,
+                                   torch.bfloat16, 11, True)
+    cell = _lstm_args(*LSTM_CASE, torch.bfloat16)
+    return ({"probe_chain": lambda: dutyprobe.probe_chain(*xw, 16),
+             "flash_absorb": lambda: flash.flash_absorb(q, k, v, 1, m, l, o),
+             "lstm_cell": lambda: pallas_ops.lstm_cell(*cell)},
+            xw, (q, k, v, m, l, o))
+
+
+def _cublas_product(region, dev) -> dict:
+    """One bf16 product through cuBLAS under the shim, then what the
+    region holds beside PyTorch's reserve: usage outside the reserve and
+    the context is device code (module) or an allocation of cuBLAS's
+    own (which the trace names)."""
+    import torch
+    from k8s_device_plugin_torch.shm.region import (KIND_BUFFER,
+                                                    KIND_CONTEXT,
+                                                    KIND_MODULE)
+    a = torch.randn(1024, 1024, device=dev, dtype=torch.bfloat16)
+    (a @ a).sum().item()
+    kinds = _own_kinds(region)
+    return {"used": region.device_used(0),
+            "reserved": torch.cuda.memory_reserved(dev),
+            "context": kinds[KIND_CONTEXT], "module": kinds[KIND_MODULE],
+            "buffer": kinds[KIND_BUFFER]}
+
+
+def _eager_windows(region, dev) -> dict:
+    """Under ``CUDA_MODULE_LOADING=EAGER`` (and a cap above the card, so
+    cuMemGetInfo reports the card's free bytes): K1's, K3's and K2's
+    first launches, each loading its library, and one cuBLAS product, as
+    windows of the device code charged against the free bytes the card
+    lost, less what the shim charged in the window as allocations and
+    context (the kernels' outputs, cuBLAS's workspace)."""
+    import torch
+    from k8s_device_plugin_torch.shm.region import (KIND_BUFFER,
+                                                    KIND_CONTEXT,
+                                                    KIND_MODULE)
+    a = torch.randn(1024, 1024, device=dev, dtype=torch.bfloat16)
+    calls = dict(_kernel_inputs(dev)[0],
+                 cublas=lambda: (a @ a).sum().item())
+    windows = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        free, before = torch.cuda.mem_get_info(dev)[0], _own_kinds(region)
+        call()
+        torch.cuda.synchronize()
+        lost = free - torch.cuda.mem_get_info(dev)[0]
+        after = _own_kinds(region)
+        moved = [after[k] - before[k] for k in range(len(after))]
+        windows[name] = {"charged": moved[KIND_MODULE], "free_lost": lost,
+                         "lost_to_code": lost - moved[KIND_BUFFER]
+                         - moved[KIND_CONTEXT]}
+    return windows
+
+
+def _refused_load(region, dev) -> dict:
+    """K3's first launch with the slice's cap just above what this
+    process holds (its context, the device code PyTorch loaded, K3's
+    inputs, and its outputs' blocks cached beforehand): the shim refuses
+    K3's library, and the launch raises through the kernel's wrapper.
+    Then the cap is put back and K3 launched again."""
+    import torch
+    from k8s_device_plugin_torch.shm.region import KIND_MODULE
+    from k8s_device_plugin_torch.workloads import flash
+    q, k, v, m, l, o = _kernel_inputs(dev)[2]
+    outs = [torch.empty_like(t) for t in (m, l, o)]
+    del outs  # their blocks stay in PyTorch's cache for the launch
+    before = _own_kinds(region)[KIND_MODULE]
+    with region.locked():
+        region.data.limit[0] = region.device_used(0) + REFUSE_MARGIN
+    error = None
+    try:
+        flash.flash_absorb(q, k, v, 1, m, l, o)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        error = str(e)
+    after = _own_kinds(region)[KIND_MODULE]
+    with region.locked():
+        region.data.limit[0] = ENFORCE_CAP
+    try:
+        flash.flash_absorb(q, k, v, 1, m, l, o)
+        torch.cuda.synchronize()
+        retry = "launched"
+    except RuntimeError as e:
+        retry = str(e)
+    return {"error": error, "margin": REFUSE_MARGIN,
+            "module_before": before, "module_after": after,
+            "retry_at_the_full_cap": retry}
+
+
 def _enforcement_child(case: str) -> int:
     """One case of ``phase_enforcement_card``, in a process started with
     the shim preloaded and the VTPU_* contract set (``bench._child_env``);
     prints one JSON line. ``main``: 512 MiB tensors until the shim
     refuses one (before anything else is allocated), then, with them
-    freed, K1, K2 and K3 against their plain versions and the K2 loop;
-    ``capped`` (under a core limit and ``VTPU_OVERSUBSCRIBE``): the K2
-    loop, then the tensors past the cap; ``disabled``: the kill switch."""
+    freed, K1, K3 and K2's first launches (each library's load charged),
+    each kernel against its plain version, the K2 loop, and one cuBLAS
+    product, with the device code charged at each point; ``capped``
+    (under a core limit and ``VTPU_OVERSUBSCRIBE``): the K2 loop, then the
+    tensors past the cap; ``eager`` (``CUDA_MODULE_LOADING=EAGER``): the
+    device code charged against the free bytes the card lost;
+    ``refuse``: K3's load refused; ``disabled``: the kill switch."""
     cap = int(os.environ["VTPU_DEVICE_MEMORY_LIMIT_0"])
     out = {"case": case}
     if case == "disabled":
         out.update(_kill_switch_child(cap))
         print(json.dumps(out), flush=True)
         return 0
-    import numpy as np
     import torch
     from k8s_device_plugin_torch import bench
     from k8s_device_plugin_torch.monitor import dutyprobe
-    from k8s_device_plugin_torch.shm.region import KIND_CONTEXT
-    from k8s_device_plugin_torch.workloads import run
+    from k8s_device_plugin_torch.shm.region import KIND_CONTEXT, KIND_MODULE
     dev = torch.device("cuda")
     region = bench.shim_region(cap, dev)
-    slot = next(p for p in region.active_procs() if p.pid == os.getpid())
-    out["context_bytes"] = slot.used[0].kinds[KIND_CONTEXT]
-    del slot
+    kinds = _own_kinds(region)
+    out["context_bytes"] = kinds[KIND_CONTEXT]
+    module = out["module_bytes"] = {"start": kinds[KIND_MODULE]}
     if case == "main":
         out["fill"] = _fill(region, dev, 64)
+        module["after_fill"] = _own_kinds(region)[KIND_MODULE]
         torch.cuda.empty_cache()
-        # K1 (a static-cudart library's launches) and K3 at the LM case
-        xw = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-              for a in dutyprobe.probe_operands(128)]
+        # each kernel's first launch loads its library (K1's and K3's
+        # static cudart): charged before any plain version runs, as those
+        # load cuBLAS's code
+        launches, xw, args = _kernel_inputs(dev)
+        for name, launch in launches.items():
+            launch()
+            torch.cuda.synchronize()
+            module[f"after_{name}"] = _own_kinds(region)[KIND_MODULE]
         out["probe_chain_err"] = check_close(
-            "probe_chain under the shim", dutyprobe.probe_chain(*xw, 16),
+            "probe_chain under the shim", launches["probe_chain"](),
             dutyprobe.probe_chain_reference(*xw, 16), 1e-4)
-        heads, width, _, _ = run.LM_CONFIG
-        batch, _, seq = run.CASES["lm"]
-        args = _flash_args(batch, seq, seq, heads, width // heads,
-                           torch.bfloat16, 11, True)
         out["flash_absorb"] = {
             f"kind{kind}": _absorb_checked(
                 f"flash_absorb under the shim kind {kind}", args, kind, 2e-2)
             for kind in (1, 2)}
-        del xw, args
+        del xw, args, launches
         out["k2"] = _k2_loop(region, dev)
+        module["after_plain_versions"] = _own_kinds(region)[KIND_MODULE]
+        out["cublas"] = _cublas_product(region, dev)
     elif case == "capped":
         out["k2"] = _k2_loop(region, dev)
         out["fill"] = _fill(region, dev, ENFORCE_CAP // ENFORCE_CHUNK + 4)
+    elif case == "eager":
+        out["windows"] = _eager_windows(region, dev)
+    elif case == "refuse":
+        out["refusal"] = _refused_load(region, dev)
     else:
         raise SystemExit(f"no enforcement case {case}")
     region.close()
@@ -866,9 +1012,50 @@ def _enforcement_child(case: str) -> int:
     return 0
 
 
+_LOAD_LINE = re.compile(r"vtpu-dbg: load (\S+) (\d+) (\S+) sm_\d+ dev \d+ "
+                        r"sm_\d+ (.*)$")
+_ALLOC_LINE = re.compile(r"vtpu-dbg: alloc (\d+) dev \d+ from (.*)$")
+_RETAIN_LINE = re.compile(r"vtpu-dbg: retain dev \d+: free bytes dropped "
+                          r"(\d+), libraries (\d+)$")
+
+
+def _load_trace(stderr: str) -> dict:
+    """A child's shim trace (``VTPU_DEBUG=1``): every load the shim saw
+    and the bytes it charged, by library (the file the image lies in;
+    ``-`` for an image on the heap, as cuBLASLt decompresses its own) and
+    by rule; and the bytes of the allocations it charged, by the library
+    that asked for them; and each primary context's creation: the free
+    bytes it took, and the libraries loaded before it, charged then."""
+    by_library, allocations, retains = {}, {}, []
+    for line in stderr.splitlines():
+        m = _LOAD_LINE.match(line)
+        if m:
+            lib = by_library.setdefault(os.path.basename(m.group(4)),
+                                        {"loads": 0, "bytes": 0,
+                                         "rules": {}})
+            lib["loads"] += 1
+            lib["bytes"] += int(m.group(2))
+            lib["rules"][m.group(3)] = lib["rules"].get(m.group(3), 0) + 1
+            continue
+        m = _ALLOC_LINE.match(line)
+        if m:
+            name = os.path.basename(m.group(2))
+            allocations[name] = allocations.get(name, 0) + int(m.group(1))
+        m = _RETAIN_LINE.match(line)
+        if m:
+            retains.append({"free_bytes_dropped": int(m.group(1)),
+                            "libraries": int(m.group(2))})
+    return {"loads": sum(v["loads"] for v in by_library.values()),
+            "bytes": sum(v["bytes"] for v in by_library.values()),
+            "by_library": by_library, "allocations_by_library": allocations,
+            "retains": retains}
+
+
 def _run_wrapped(case: str, workdir: str, shim: str, extra: dict) -> dict:
     """``_enforcement_child(case)`` in a fresh process under the shim, with
-    a region of its own and the enforcement phase's cap; its line."""
+    a region of its own and the enforcement phase's cap unless ``extra``
+    sets another; its line, with the shim's trace summed when ``extra``
+    turns it on."""
     from k8s_device_plugin_torch import bench
     cache = tempfile.mkdtemp(prefix=f"{case}-", dir=workdir)
     env = bench._child_env({"VTPU_DEVICE_MEMORY_SHARED_CACHE": cache,
@@ -880,32 +1067,46 @@ def _run_wrapped(case: str, workdir: str, shim: str, extra: dict) -> dict:
     if proc.returncode != 0:
         raise AssertionError(f"enforcement {case}: rc={proc.returncode}\n"
                              f"{proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if extra.get("VTPU_DEBUG"):
+        line["trace"] = _load_trace(proc.stderr)
+    return line
 
 
 def phase_enforcement_card(card: str) -> dict:
-    """The enforcement shim (``libvtpu_cuda.so``) on the card, in three
-    fresh processes under it with a 4 GiB cap each: K1, K2 and K3 under it
-    against their plain versions; a K2 launch loop at case 5.1 under
-    ``VTPU_DEVICE_CORE_LIMIT=50`` against one without a limit, the rate
-    ratio inside ``bench.DUTY_BAND``; 512 MiB tensors until the shim
+    """The enforcement shim (``libvtpu_cuda.so``) on the card, in five
+    fresh processes under it with a 5 GiB cap each unless said: K1, K2 and
+    K3 under it against their plain versions; a K2 launch loop at case 5.1
+    under ``VTPU_DEVICE_CORE_LIMIT=50`` against one without a limit, the
+    rate ratio inside ``bench.DUTY_BAND``; 512 MiB tensors until the shim
     refuses one (``torch.OutOfMemoryError``), with the allocator's reserve
     and the region's usage never above the cap, the usage equal to the
-    reserve plus the charged context within one segment, and the card
-    reporting the cap as its total; the same past the cap under
-    ``VTPU_OVERSUBSCRIBE=1`` (spill, no refusal, no violation); and the
-    kill switch, under which the whole card shows and nothing is refused.
-    Every line carries the card's name and power limit."""
+    reserve plus the charged context and device code within one segment,
+    and the card reporting the cap as its total; the same past the cap
+    under ``VTPU_OVERSUBSCRIBE=1`` (spill, no refusal, no violation); the
+    device code the loads charged (``enforcement_module``): by library
+    from the shim's trace, at each point of the main child, after a cuBLAS
+    product beside cuBLAS's own allocations, against the free bytes the
+    card lost under ``CUDA_MODULE_LOADING=EAGER`` (above the card's
+    memory as the cap), and K3's load refused at a cap just above what a
+    child holds; and the kill switch, under which the whole card shows and
+    nothing is refused. Every line carries the card's name and power
+    limit."""
     from k8s_device_plugin_torch import _build, bench
     t0 = time.perf_counter()
     shim = _build.host_library("vtpu_cuda")
+    traced = {"VTPU_DEBUG": "1"}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-enforce-") as tmp:
-        main = _run_wrapped("main", tmp, shim, {})
+        main = _run_wrapped("main", tmp, shim, traced)
         capped = _run_wrapped("capped", tmp, shim,
                               {"VTPU_DEVICE_CORE_LIMIT": "50",
                                "VTPU_OVERSUBSCRIBE": "1"})
         off = _run_wrapped("disabled", tmp, shim,
                            {"VTPU_DISABLE_CONTROL": "true"})
+        eager = _run_wrapped("eager", tmp, shim,
+                             {**traced, "CUDA_MODULE_LOADING": "EAGER",
+                              "VTPU_DEVICE_MEMORY_LIMIT_0": str(EAGER_CAP)})
+        refuse = _run_wrapped("refuse", tmp, shim, traced)
 
     emit("enforcement_kernels", card=card,
          probe_chain_err=main["probe_chain_err"],
@@ -922,13 +1123,15 @@ def phase_enforcement_card(card: str) -> dict:
                              f"outside {bench.DUTY_BAND}")
 
     fill, ctx = main["fill"], main["context_bytes"]
-    gap = [u - (r + ctx) for r, u in zip(fill["reserved"], fill["used"])]
+    gap = [u - (r + ctx + m)
+           for r, u, m in zip(fill["reserved"], fill["used"], fill["module"])]
     emit("enforcement_oom", card=card, cap=ENFORCE_CAP, chunk=ENFORCE_CHUNK,
          refused_at=fill["refused_at"],
          reserved_at_refusal=fill["reserved_at_end"],
          used_at_refusal=fill["used_at_end"],
          max_reserved=fill["max_reserved"], context_bytes=ctx,
-         used_minus_reserved_and_context=gap,
+         module_bytes=fill["module"],
+         used_minus_reserved_context_and_module=gap,
          mem_get_info=fill["mem_get_info"])
     if not (fill["refused_at"] and fill["max_reserved"] <= ENFORCE_CAP
             and max(fill["used"]) <= ENFORCE_CAP
@@ -952,9 +1155,76 @@ def phase_enforcement_card(card: str) -> dict:
     if not (off["rcs"] == [0] * 5 and off["total"] > ENFORCE_CAP
             and not off["region_exists"]):
         raise AssertionError(f"enforcement kill switch: {off}")
+
+    _check_module_charge(card, main, eager, refuse, capped)
     seconds = time.perf_counter() - t0
     emit("enforcement_card", card=card, seconds=seconds)
     return {"k2_ratio": ratio, "seconds": seconds}
+
+
+def _check_module_charge(card: str, main: dict, eager: dict, refuse: dict,
+                         capped: dict) -> None:
+    """The ``enforcement_module`` line and its checks: each kernel's
+    library charged at its first launch (the trace names it, read as a
+    cubin of the fatbin), ``used`` after a cuBLAS product equal to the
+    reserve, the context, the device code and cuBLAS's own allocations
+    within one segment, the EAGER windows large enough to read within
+    ``EAGER_BAND`` of the free bytes the card lost, and the refused load
+    raised through the kernel's wrapper with no charge left from it."""
+    trace, module = main["trace"], main["module_bytes"]
+    kernels = ("probe_chain", "flash_absorb", "lstm_cell")
+    libs = {name: next((v for lib, v in trace["by_library"].items()
+                        if lib.startswith(f"lib{name}-")), None)
+            for name in kernels}
+    steps = ["after_fill", *(f"after_{n}" for n in kernels)]
+    cub = main["cublas"]
+    cublas_own = sum(b for lib, b in trace["allocations_by_library"].items()
+                     if lib.startswith("libcublas"))
+    outside = cub["used"] - cub["reserved"] - cub["context"]
+    windows = eager["windows"]
+    kernel_window = {key: sum(windows[n][key] for n in kernels)
+                     for key in ("charged", "free_lost", "lost_to_code")}
+    # a primary context created under EAGER takes the libraries loaded
+    # before it: its footprint less the lazy one's, against their charge
+    lazy, loaded = trace["retains"][0], eager["trace"]["retains"][0]
+    created = {"charged": loaded["libraries"],
+               "lost_to_code": loaded["free_bytes_dropped"]
+               - lazy["free_bytes_dropped"]}
+    ratio = {name: w["charged"] / w["lost_to_code"]
+             if w["lost_to_code"] > 0 else None
+             for name, w in (("kernels", kernel_window),
+                             ("cublas", windows["cublas"]),
+                             ("context_creation", created))}
+    refusal = refuse["refusal"]
+    emit("enforcement_module", card=card, loads=trace["loads"],
+         charged=trace["bytes"], by_library=trace["by_library"],
+         module_bytes=module,
+         after_cublas={**cub, "outside_reserve_and_context": outside,
+                       "cublas_own_allocations": cublas_own,
+                       "unexplained": outside - cub["module"] - cublas_own},
+         allocations_by_library=trace["allocations_by_library"],
+         eager={"windows": windows, "kernels": kernel_window,
+                "context_creation": created, "charged_over_lost": ratio,
+                "band": list(EAGER_BAND),
+                "loads": eager["trace"]["loads"],
+                "charged": eager["trace"]["bytes"],
+                "by_library": eager["trace"]["by_library"]},
+         refusal=refusal, refused_child_loads=refuse["trace"]["loads"],
+         capped_module_bytes=capped["module_bytes"])
+    if not all(lib and lib["rules"] == {"fatbin": 1} for lib in
+               libs.values()) or not all(
+            module[b] > module[a] for a, b in zip(steps, steps[1:])):
+        raise AssertionError(f"module charge of the kernels' libraries: "
+                             f"{libs} {module}")
+    if abs(outside - cub["module"] - cublas_own) > ENFORCE_SLACK:
+        raise AssertionError(f"used after cuBLAS: {cub}, cuBLAS's own "
+                             f"{cublas_own}")
+    if not all(r is not None and EAGER_BAND[0] <= r <= EAGER_BAND[1]
+               for name, r in ratio.items() if name != "kernels"):
+        raise AssertionError(f"module charge under EAGER: {ratio}")
+    if not (refusal["error"] and "CUDA error" in refusal["error"]
+            and refusal["module_after"] == refusal["module_before"]):
+        raise AssertionError(f"refused load: {refusal}")
 
 
 def _runner_line(argv) -> dict:
@@ -1030,6 +1300,7 @@ def phase_main_path() -> dict:
              "per_proc_best_pass_img_per_s"],
          hbm_cap_bytes=extra["hbm_cap_bytes"],
          hbm_used_bytes=extra["hbm_used_bytes"],
+         per_proc_module_bytes=extra["module_bytes"]["share"],
          violations=extra["hbm_limit_violations"],
          achieved_tflops=extra["achieved_tflops"], mfu=extra["mfu"],
          probe=extra["probe"], seconds=time.perf_counter() - t0)
@@ -1047,12 +1318,14 @@ def phase_main_path() -> dict:
     over, duty = extra["oversubscribe"], extra["duty_check"]
     emit("bench_oversubscribe", **over, cap_bytes=bench.OVERSUB_CAP_BYTES,
          shape=list(bench.QUICK_TIER),
+         module_bytes=extra["module_bytes"]["oversubscribe"],
          seconds=extra["phase_s"]["oversubscribe"])
     if not (over["replicas"] == 10 and over["spill_bytes"] > 0
             and over["violations"] == 0):
         raise AssertionError(f"oversubscribe phase: {over}")
     emit("bench_duty_check", **duty, band=list(bench.DUTY_BAND),
          batch=extra["batch"], image_size=extra["image_size"],
+         module_bytes=extra["module_bytes"]["duty_check"],
          seconds=extra["phase_s"]["duty_check"])
     if not duty["within_band"]:
         raise AssertionError(f"duty check: capped/uncapped {duty['ratio']} "

@@ -37,11 +37,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: host libraries: name -> their C sources in ``csrc``. ``vtpu_cuda`` is
 #: the enforcement shim (LD_PRELOAD), ``vtpu_shm`` the shared region's
 #: primitives without the shim (``shm/region.py`` loads it), ``cuda_mock``
-#: a CUDA driver test double
+#: a CUDA driver test double; ``vtpu_image.c`` reads what a loaded image
+#: puts on a device, for the shim and the mock alike
 HOST_LIBRARIES = {
-    "vtpu_cuda": ("vtpu_cuda_preload.c", "vtpu_shm.c"),
+    "vtpu_cuda": ("vtpu_cuda_preload.c", "vtpu_shm.c", "vtpu_image.c"),
     "vtpu_shm": ("vtpu_shm.c",),
-    "cuda_mock": ("mock_cuda.c",),
+    "cuda_mock": ("mock_cuda.c", "vtpu_image.c"),
 }
 CC_FLAGS = ("-std=gnu11", "-O2", "-g", "-Wall", "-Wextra", "-fPIC", "-shared")
 CC_LIBS = ("-ldl", "-lpthread")

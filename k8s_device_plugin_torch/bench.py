@@ -240,6 +240,16 @@ def drain_bucket(region, call, dev: int = 0, seconds: float = 10.0) -> int:
     return calls
 
 
+def shim_module_bytes(region) -> int:
+    """The device code this process's loads charged the region: the
+    module kind of its slot on ordinal 0."""
+    from .shm.region import KIND_MODULE
+    slot = next(p for p in region.active_procs() if p.pid == os.getpid())
+    charged = int(slot.used[0].kinds[KIND_MODULE])
+    del slot  # no view of the mapping outlives the call
+    return charged
+
+
 def shim_accounting(region, cap: int, device) -> tuple[int, int, int]:
     """(used, spill, violations) of a wrapped child once its window is
     over: used is what the shim charged the region (the allocator's
@@ -304,12 +314,13 @@ def child_main(args) -> int:
             for _ in range(PASSES)]
     end = time.time()
 
-    used = spill = violations = 0
+    used = spill = violations = module = 0
     if limiter is not None:
         used, spill, violations = memory_accounting(limiter, cap, device)
         limiter.uninstall()
     elif region is not None:
         used, spill, violations = shim_accounting(region, cap, device)
+        module = shim_module_bytes(region)
         region.close()
     cuda = device.type == "cuda"
     images = batch * iters * PASSES
@@ -325,6 +336,7 @@ def child_main(args) -> int:
         "batch": batch,
         "image_size": size,
         "hbm_used_bytes": int(used),
+        "hbm_module_bytes": module,
         "hbm_cap_bytes": cap,
         "violations": violations,
         "spill_bytes": int(spill),
@@ -439,6 +451,7 @@ def aggregate(outs: list[dict]) -> dict:
     agg["per_proc_best_pass_img_per_s"] = [o["best_pass_img_per_s"]
                                            for o in outs]
     agg["hbm_used_bytes"] = sum(o["hbm_used_bytes"] for o in outs)
+    agg["per_proc_module_bytes"] = [o["hbm_module_bytes"] for o in outs]
     agg["violations"] = sum(o["violations"] for o in outs)
     return agg
 
@@ -488,19 +501,20 @@ def oversubscribe_result(replicas: int, outs: list[dict]) -> dict:
             "img_per_s": aggregate(outs)["img_per_s"]}
 
 
-def run_oversubscribe(args, workdir: str) -> dict:
+def run_oversubscribe(args, workdir: str) -> tuple[dict, list[dict]]:
     """``VTPU_BENCH_OVERSUB_REPLICAS`` (10) concurrent share children under
     ``VTPU_OVERSUBSCRIBE=1`` with a cap of ``OVERSUB_CAP_BYTES``, which
     the workload exceeds (spill above 0), at the quick tier unless the
-    caller pinned the shapes."""
+    caller pinned the shapes. Returns the phase's entry and the replicas'
+    lines."""
     targs = copy.copy(args)
     if not _pinned(args):
         targs.batch, targs.image_size, targs.iters = QUICK_TIER
     n = int(os.environ.get("VTPU_BENCH_OVERSUB_REPLICAS", "10"))
     envs = _share_envs(n, OVERSUB_CAP_BYTES, workdir, "osub",
                        {"VTPU_OVERSUBSCRIBE": "1"})
-    return oversubscribe_result(
-        n, _run_children("share", targs, envs, workdir, label="osub"))
+    outs = _run_children("share", targs, envs, workdir, label="osub")
+    return oversubscribe_result(n, outs), outs
 
 
 def duty_result(uncapped: dict, capped: dict) -> dict:
@@ -513,18 +527,19 @@ def duty_result(uncapped: dict, capped: dict) -> dict:
             "within_band": DUTY_BAND[0] <= ratio <= DUTY_BAND[1]}
 
 
-def run_duty_check(args, total_bytes: int, workdir: str) -> dict:
+def run_duty_check(args, total_bytes: int, workdir: str
+                   ) -> tuple[dict, list[dict]]:
     """One share child at ``VTPU_DEVICE_CORE_LIMIT=0`` and then one at
     ``50``, alone on the device, at the bench's shapes. Both pin the limit
     explicitly: a supervisor inside a capped container must not run the
     "uncapped" leg at its inherited cap (``_child_env`` drops inherited
-    ``VTPU_*`` anyway)."""
+    ``VTPU_*`` anyway). Returns the phase's entry and the two lines."""
     legs = [_run_children(
         "share", args, _share_envs(1, total_bytes // args.share, workdir,
                                    f"duty{pct}-",
                                    {"VTPU_DEVICE_CORE_LIMIT": str(pct)}),
         workdir, label=f"duty{pct}-")[0] for pct in (0, 50)]
-    return duty_result(*legs)
+    return duty_result(*legs), legs
 
 
 def probe_runner(device: str):
@@ -541,7 +556,8 @@ def measure(args, workdir: str) -> dict:
     """Native run, idle-card probe calibration, the share with the probe
     sampling beside it, then the oversubscribe phase and the duty check;
     returns the result line, with each phase's seconds under
-    ``extra.phase_s``."""
+    ``extra.phase_s`` and the device code each child's loads charged (0
+    unless the shim held it) under ``extra.module_bytes``."""
     from .monitor.dutyprobe import DutyProbe
     seconds = {}
 
@@ -564,11 +580,16 @@ def measure(args, workdir: str) -> dict:
 
     share = timed("share", run_share, args, native["total_bytes"], workdir,
                   during=sample)
-    oversub = timed("oversubscribe", run_oversubscribe, args, workdir)
-    duty = timed("duty_check", run_duty_check, args, native["total_bytes"],
-                 workdir)
+    oversub, replicas = timed("oversubscribe", run_oversubscribe, args,
+                              workdir)
+    duty, legs = timed("duty_check", run_duty_check, args,
+                       native["total_bytes"], workdir)
     result = assemble(args, native, share, probe, runner, oversub, duty)
     result["extra"]["phase_s"] = seconds
+    result["extra"]["module_bytes"] = {
+        "share": share["per_proc_module_bytes"],
+        "oversubscribe": [o["hbm_module_bytes"] for o in replicas],
+        "duty_check": [o["hbm_module_bytes"] for o in legs]}
     return result
 
 

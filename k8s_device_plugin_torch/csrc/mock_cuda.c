@@ -12,8 +12,14 @@
  *
  * The devices hold no memory: an allocation gets an address and counts
  * against the device's size, and a launch advances a virtual device clock
- * by its device time, which events read. Settings, read at first use:
+ * by its device time, which events read. A loaded module or library gets
+ * a handle and counts against its device (a module the current
+ * context's, a library the current context's or device 0) by the bytes
+ * vtpu_image.h reads from its image for the device's SM; its functions
+ * and kernels are handles a launch takes. Settings, read at first use:
  *   VTPU_MOCK_CUDA_DEVICES    devices (default 1, at most 8)
+ *   VTPU_MOCK_CUDA_CC         every device's compute capability, as
+ *                             "major.minor" (default 9.0)
  *   VTPU_MOCK_CUDA_HBM        bytes a device holds (default 80 GiB)
  *   VTPU_MOCK_CUDA_CTX_BYTES  bytes a context reserves (default 0)
  *   VTPU_MOCK_CUDA_LAUNCH_US  device time of a kernel launch per block of
@@ -24,6 +30,7 @@
 
 #define _GNU_SOURCE
 #include "cuda_driver_abi.h"
+#include "vtpu_image.h"
 
 #include <pthread.h>
 #include <stdlib.h>
@@ -41,11 +48,17 @@ typedef struct {
     uint64_t key;
     uint64_t bytes;
     int dev;
+    int code; /* a module or library, keyed by its mock_code_t */
 } mock_alloc_t;
+
+/* a loaded module or library; its function (kernel) handle is &fn */
+typedef struct {
+    char fn;
+} mock_code_t;
 
 static pthread_mutex_t g_mu = PTHREAD_MUTEX_INITIALIZER;
 static pthread_once_t g_once = PTHREAD_ONCE_INIT;
-static int g_ndevs;
+static int g_ndevs, g_cc_major, g_cc_minor;
 static uint64_t g_hbm, g_ctx_bytes, g_launch_us, g_graph_us;
 static uint64_t g_used[MAX_DEVS];
 static mock_ctx_t g_primary[MAX_DEVS];
@@ -70,6 +83,10 @@ static void configure(void) {
     if (g_ndevs < 1 || g_ndevs > MAX_DEVS) {
         g_ndevs = 1;
     }
+    const char *cc = getenv("VTPU_MOCK_CUDA_CC");
+    char *dot = NULL;
+    g_cc_major = cc && *cc ? (int)strtol(cc, &dot, 10) : 9;
+    g_cc_minor = dot && *dot == '.' ? (int)strtol(dot + 1, NULL, 10) : 0;
     g_hbm = env_u64("VTPU_MOCK_CUDA_HBM", 80ull << 30);
     g_ctx_bytes = env_u64("VTPU_MOCK_CUDA_CTX_BYTES", 0);
     g_launch_us = env_u64("VTPU_MOCK_CUDA_LAUNCH_US", 0);
@@ -222,11 +239,27 @@ static CUresult m_cuCtxGetDevice(CUdevice *device) {
     return CUDA_SUCCESS;
 }
 
+static CUresult m_cuDeviceGetAttribute(int *pi, CUdevice_attribute attrib,
+                                       CUdevice dev) {
+    pthread_once(&g_once, configure);
+    if (!pi || dev < 0 || dev >= g_ndevs) {
+        return CUDA_ERROR_INVALID_VALUE;
+    }
+    if (attrib == CU_DEVICE_ATTRIBUTE_COMPUTE_CAPABILITY_MAJOR) {
+        *pi = g_cc_major;
+    } else if (attrib == CU_DEVICE_ATTRIBUTE_COMPUTE_CAPABILITY_MINOR) {
+        *pi = g_cc_minor;
+    } else {
+        return CUDA_ERROR_INVALID_VALUE;
+    }
+    return CUDA_SUCCESS;
+}
+
 /* -------------------------------------------------------------- memory */
 
-/* under g_mu */
-static CUresult take_bytes(int dev, uint64_t bytes, uint64_t key) {
-    if (bytes == 0) {
+/* under g_mu; device code may hold 0 bytes, an allocation may not */
+static CUresult take_bytes(int dev, uint64_t bytes, uint64_t key, int code) {
+    if (bytes == 0 && !code) {
         return CUDA_ERROR_INVALID_VALUE;
     }
     if (g_used[dev] + bytes > g_hbm) {
@@ -241,15 +274,15 @@ static CUresult take_bytes(int dev, uint64_t bytes, uint64_t key) {
         g_allocs = n;
         g_cap_allocs = ncap;
     }
-    g_allocs[g_nallocs++] = (mock_alloc_t){key, bytes, dev};
+    g_allocs[g_nallocs++] = (mock_alloc_t){key, bytes, dev, code};
     g_used[dev] += bytes;
     return CUDA_SUCCESS;
 }
 
 /* under g_mu */
-static CUresult give_back(uint64_t key) {
+static CUresult give_back(uint64_t key, int code) {
     for (size_t i = 0; i < g_nallocs; i++) {
-        if (g_allocs[i].key == key) {
+        if (g_allocs[i].key == key && g_allocs[i].code == code) {
             g_used[g_allocs[i].dev] -= g_allocs[i].bytes;
             g_allocs[i] = g_allocs[--g_nallocs];
             return CUDA_SUCCESS;
@@ -265,7 +298,7 @@ static CUresult alloc_on_current(CUdeviceptr *dptr, uint64_t bytes) {
     }
     LOCK();
     uint64_t addr = g_next_addr;
-    CUresult rc = take_bytes(c->dev, bytes, addr);
+    CUresult rc = take_bytes(c->dev, bytes, addr, 0);
     if (rc == CUDA_SUCCESS) {
         g_next_addr += (bytes + (2ull << 20) - 1) & ~((2ull << 20) - 1);
         *dptr = addr;
@@ -316,7 +349,7 @@ static CUresult m_cuMemCreate(CUmemGenericAllocationHandle *handle,
         return CUDA_ERROR_INVALID_VALUE;
     }
     uint64_t key = g_next_handle;
-    CUresult rc = take_bytes(dev, size, key);
+    CUresult rc = take_bytes(dev, size, key, 0);
     if (rc == CUDA_SUCCESS) {
         g_next_handle++;
         *handle = key;
@@ -327,7 +360,7 @@ static CUresult m_cuMemCreate(CUmemGenericAllocationHandle *handle,
 
 static CUresult m_cuMemFree_v2(CUdeviceptr dptr) {
     LOCK();
-    CUresult rc = give_back(dptr);
+    CUresult rc = give_back(dptr, 0);
     UNLOCK();
     return rc;
 }
@@ -355,7 +388,7 @@ static CUresult m_cuMemFreeAsync_ptsz(CUdeviceptr dptr, CUstream hStream) {
 
 static CUresult m_cuMemRelease(CUmemGenericAllocationHandle handle) {
     LOCK();
-    CUresult rc = give_back(handle);
+    CUresult rc = give_back(handle, 0);
     UNLOCK();
     return rc;
 }
@@ -370,6 +403,134 @@ static CUresult m_cuMemGetInfo_v2(size_t *free, size_t *total) {
     *total = g_hbm;
     UNLOCK();
     return CUDA_SUCCESS;
+}
+
+/* ------------------------------------------------------ modules, libraries */
+
+/* a handle of `dev` holding the device bytes of `image` (or of the file
+ * at `path`) */
+static CUresult load_code(void **out, const void *image, const char *path,
+                          int dev) {
+    pthread_once(&g_once, configure);
+    vtpu_image_charge_t c;
+    if (!out || (!image && !path)) {
+        return CUDA_ERROR_INVALID_VALUE;
+    }
+    if (!path) {
+        c = vtpu_image_charge(image, 0, g_cc_major, g_cc_minor);
+    } else if (vtpu_image_charge_file(path, g_cc_major, g_cc_minor, &c)) {
+        return CUDA_ERROR_FILE_NOT_FOUND;
+    }
+    mock_code_t *code = calloc(1, sizeof(*code));
+    if (!code) {
+        return CUDA_ERROR_OUT_OF_MEMORY;
+    }
+    LOCK();
+    CUresult rc = take_bytes(dev, c.bytes, (uint64_t)(uintptr_t)code, 1);
+    UNLOCK();
+    if (rc != CUDA_SUCCESS) {
+        free(code);
+        return rc;
+    }
+    *out = code;
+    return CUDA_SUCCESS;
+}
+
+static CUresult load_module(CUmodule *module, const void *image,
+                            const char *path) {
+    mock_ctx_t *c = current();
+    if (!c) {
+        return CUDA_ERROR_INVALID_CONTEXT;
+    }
+    return load_code((void **)module, image, path, c->dev);
+}
+
+static CUresult load_library(CUlibrary *library, const void *image,
+                             const char *path) {
+    mock_ctx_t *c = current();
+    return load_code((void **)library, image, path, c ? c->dev : 0);
+}
+
+static CUresult unload_code(void *handle) {
+    LOCK();
+    CUresult rc = give_back((uint64_t)(uintptr_t)handle, 1);
+    UNLOCK();
+    if (rc != CUDA_SUCCESS) {
+        return CUDA_ERROR_INVALID_HANDLE;
+    }
+    free(handle);
+    return CUDA_SUCCESS;
+}
+
+/* the function handle of a loaded module or library */
+static CUresult code_function(void **out, void *handle, const char *name) {
+    int live = 0;
+    LOCK();
+    for (size_t i = 0; i < g_nallocs && !live; i++) {
+        live = g_allocs[i].code && g_allocs[i].key == (uintptr_t)handle;
+    }
+    UNLOCK();
+    if (!live || !name || !out) {
+        return live ? CUDA_ERROR_INVALID_VALUE : CUDA_ERROR_INVALID_HANDLE;
+    }
+    *out = &((mock_code_t *)handle)->fn;
+    return CUDA_SUCCESS;
+}
+
+static CUresult m_cuModuleLoad(CUmodule *module, const char *fname) {
+    return load_module(module, NULL, fname);
+}
+
+static CUresult m_cuModuleLoadData(CUmodule *module, const void *image) {
+    return load_module(module, image, NULL);
+}
+
+static CUresult m_cuModuleLoadDataEx(CUmodule *module, const void *image,
+                                     unsigned int numOptions,
+                                     CUjit_option *options,
+                                     void **optionValues) {
+    (void)numOptions, (void)options, (void)optionValues;
+    return load_module(module, image, NULL);
+}
+
+static CUresult m_cuModuleLoadFatBinary(CUmodule *module,
+                                        const void *fatCubin) {
+    return load_module(module, fatCubin, NULL);
+}
+
+static CUresult m_cuModuleUnload(CUmodule hmod) {
+    return unload_code(hmod);
+}
+
+static CUresult m_cuModuleGetFunction(CUfunction *hfunc, CUmodule hmod,
+                                      const char *name) {
+    return code_function((void **)hfunc, hmod, name);
+}
+
+static CUresult m_cuLibraryLoadData(CUlibrary *library, const void *code,
+                                    VTPU_CU_LIBRARY_OPTIONS) {
+    (void)jitOptions, (void)jitOptionsValues, (void)numJitOptions;
+    (void)libraryOptions, (void)libraryOptionValues;
+    (void)numLibraryOptions;
+    return load_library(library, code, NULL);
+}
+
+static CUresult m_cuLibraryLoadFromFile(CUlibrary *library,
+                                        const char *fileName,
+                                        VTPU_CU_LIBRARY_OPTIONS) {
+    (void)jitOptions, (void)jitOptionsValues, (void)numJitOptions;
+    (void)libraryOptions, (void)libraryOptionValues;
+    (void)numLibraryOptions;
+    return load_library(library, NULL, fileName);
+}
+
+static CUresult m_cuLibraryUnload(CUlibrary library) {
+    return unload_code(library);
+}
+
+static CUresult m_cuLibraryGetKernel(CUkernel *pKernel, CUlibrary library,
+                                     const char *name) {
+    return code_function((void **)pKernel, library, name);
 }
 
 /* ------------------------------------------------------------ launches */
@@ -519,6 +680,7 @@ static CUresult m_cuGetProcAddress(const char *symbol, void **pfn,
     X(cuCtxSetCurrent, "cuCtxSetCurrent", 4000, 0, 0, 0)                  \
     X(cuCtxGetCurrent, "cuCtxGetCurrent", 4000, 0, 0, 0)                  \
     X(cuCtxGetDevice, "cuCtxGetDevice", 2000, 0, 0, 0)                    \
+    X(cuDeviceGetAttribute, "cuDeviceGetAttribute", 2000, 0, 0, 0)        \
     X(cuMemAlloc_v2, "cuMemAlloc", 3020, 0, 0, 0)                         \
     X(cuMemAllocPitch_v2, "cuMemAllocPitch", 3020, 0, 0, 0)               \
     X(cuMemAllocAsync, "cuMemAllocAsync", 11020, 0, 1, 0)                 \
@@ -547,7 +709,17 @@ static CUresult m_cuGetProcAddress(const char *symbol, void **pfn,
     X(cuEventRecord, "cuEventRecord", 2000, 0, 0, 0)                      \
     X(cuEventQuery, "cuEventQuery", 2000, 0, 0, 0)                        \
     X(cuEventElapsedTime, "cuEventElapsedTime", 2000, 0, 0, 0)            \
-    X(cuStreamIsCapturing, "cuStreamIsCapturing", 10000, 0, 0, 0)
+    X(cuStreamIsCapturing, "cuStreamIsCapturing", 10000, 0, 0, 0)        \
+    X(cuModuleLoad, "cuModuleLoad", 2000, 0, 0, 0)                        \
+    X(cuModuleLoadData, "cuModuleLoadData", 2000, 0, 0, 0)                \
+    X(cuModuleLoadDataEx, "cuModuleLoadDataEx", 2010, 0, 0, 0)            \
+    X(cuModuleLoadFatBinary, "cuModuleLoadFatBinary", 2000, 0, 0, 0)      \
+    X(cuModuleUnload, "cuModuleUnload", 2000, 0, 0, 0)                    \
+    X(cuModuleGetFunction, "cuModuleGetFunction", 2000, 0, 0, 0)          \
+    X(cuLibraryLoadData, "cuLibraryLoadData", 12000, 0, 0, 0)             \
+    X(cuLibraryLoadFromFile, "cuLibraryLoadFromFile", 12000, 0, 0, 0)     \
+    X(cuLibraryUnload, "cuLibraryUnload", 12000, 0, 0, 0)                 \
+    X(cuLibraryGetKernel, "cuLibraryGetKernel", 12000, 0, 0, 0)
 
 static const struct {
     const char *base;
@@ -600,13 +772,18 @@ static CUresult m_cuGetProcAddress(const char *symbol, void **pfn,
 
 /* what the mock saw: out[0] launches through the legacy-stream entry
  * points, out[1] through the `_ptsz` ones, out[2] graph launches, out[3]
- * bytes in use on device 0, out[4] live allocations */
-void vtpu_mock_cuda_counters(uint64_t out[5]) {
+ * bytes in use on device 0, out[4] live allocations, out[5] live modules
+ * and libraries, out[6] the bytes they hold on every device */
+void vtpu_mock_cuda_counters(uint64_t out[7]) {
     LOCK();
     out[0] = g_launches;
     out[1] = g_launches_ptsz;
     out[2] = g_graph_launches;
     out[3] = g_used[0];
-    out[4] = g_nallocs;
+    out[4] = out[5] = out[6] = 0;
+    for (size_t i = 0; i < g_nallocs; i++) {
+        out[g_allocs[i].code ? 5 : 4]++;
+        out[6] += g_allocs[i].code ? g_allocs[i].bytes : 0;
+    }
     UNLOCK();
 }

@@ -16,6 +16,13 @@
  *   cuLaunchCooperativeKernel,          measured cost per CUfunction (or
  *   cuGraphLaunch                       graph), as Execute is per program
  *   cuMemGetInfo_v2                     total = the cap, free = cap - used
+ *   cuModuleLoad, cuModuleLoadData,     loaded device code: the image's
+ *   cuModuleLoadDataEx, cuModuleLoad-   code for the device's SM charged
+ *   FatBinary, cuLibraryLoadData,       as module memory (the counterpart
+ *   cuLibraryLoadFromFile               of Compile/DeserializeAndLoad's
+ *                                       SizeOfGeneratedCodeInBytes),
+ *                                       refused past the cap
+ *   cuModuleUnload, cuLibraryUnload     the charge released
  *
  * Reaching the calls. The CUDA runtime (PyTorch's libcudart, or the
  * static cudart inside each kernel library nvcc builds) dlopens
@@ -39,6 +46,7 @@
 
 #define _GNU_SOURCE
 #include "cuda_driver_abi.h"
+#include "vtpu_image.h"
 #include "vtpu_shm.h"
 
 #include <dlfcn.h>
@@ -131,6 +139,7 @@ static void *real_symbol(const char *name) {
     X(cuCtxCreate_v2)                                                     \
     X(cuCtxDestroy_v2)                                                    \
     X(cuCtxGetDevice)                                                     \
+    X(cuDeviceGetAttribute)                                               \
     X(cuEventCreate)                                                      \
     X(cuEventRecord)                                                      \
     X(cuEventQuery)                                                       \
@@ -205,7 +214,15 @@ enum {
     X(cuLaunchCooperativeKernel_ptsz, "cuLaunchCooperativeKernel", 9000,  \
       0, 1, 1)                                                            \
     X(cuGraphLaunch, "cuGraphLaunch", 10000, 0, 1, 0)                     \
-    X(cuGraphLaunch_ptsz, "cuGraphLaunch", 10000, 0, 1, 1)
+    X(cuGraphLaunch_ptsz, "cuGraphLaunch", 10000, 0, 1, 1)                \
+    X(cuModuleLoad, "cuModuleLoad", 2000, 0, 0, 0)                        \
+    X(cuModuleLoadData, "cuModuleLoadData", 2000, 0, 0, 0)                \
+    X(cuModuleLoadDataEx, "cuModuleLoadDataEx", 2010, 0, 0, 0)            \
+    X(cuModuleLoadFatBinary, "cuModuleLoadFatBinary", 2000, 0, 0, 0)      \
+    X(cuModuleUnload, "cuModuleUnload", 2000, 0, 0, 0)                    \
+    X(cuLibraryLoadData, "cuLibraryLoadData", 12000, 0, 0, 0)             \
+    X(cuLibraryLoadFromFile, "cuLibraryLoadFromFile", 12000, 0, 0, 0)     \
+    X(cuLibraryUnload, "cuLibraryUnload", 12000, 0, 0, 0)
     HOOK_TABLE(HOOK_ID_) H_COUNT
 };
 
@@ -323,7 +340,7 @@ static CUresult h_cuGetProcAddress(const char *symbol, void **pfn,
 
 /* ------------------------------------------------- handle -> (bytes, dev)
  * Open-addressing maps keyed by a 64-bit handle (device pointer, generic
- * allocation handle, CUfunction), under g_mu. */
+ * allocation handle, CUfunction, CUmodule, CUlibrary), under g_mu. */
 
 typedef struct {
     uint64_t key;
@@ -415,6 +432,8 @@ static void map_del(map_t *m, ent_t *e) {
 static map_t g_ptrs;    /* device pointer -> (bytes, ordinal) */
 static map_t g_handles; /* cuMemCreate handle -> (bytes, ordinal) */
 static map_t g_costs;   /* CUfunction / CUgraphExec -> EMA (us) */
+static map_t g_modules;   /* CUmodule -> (bytes, its ordinal's bit) */
+static map_t g_libraries; /* CUlibrary -> (bytes, the ordinals charged) */
 
 static void track(map_t *m, uint64_t key, uint64_t bytes, int dev) {
     pthread_mutex_lock(&g_mu);
@@ -473,14 +492,26 @@ static CUresult pre_alloc_check(int dev, uint64_t est) {
     return CUDA_ERROR_OUT_OF_MEMORY;
 }
 
+/* the library `addr` lies in, for the trace */
+static const char *library_of(const void *addr) {
+    Dl_info info;
+    return addr && dladdr(addr, &info) && info.dli_fname ? info.dli_fname
+                                                          : "-";
+}
+
 static void post_alloc_track(CUresult rc, map_t *m, uint64_t key, int dev,
-                             uint64_t est, uint64_t actual) {
+                             uint64_t est, uint64_t actual,
+                             const void *caller) {
     if (!accounting(dev) || est == 0) {
         return;
     }
     if (rc != CUDA_SUCCESS) {
         vtpu_free(g_region, g_slot, dev, est, VTPU_MEM_BUFFER);
         return;
+    }
+    if (g_debug) {
+        VTPU_DBG("alloc %llu dev %d from %s", (unsigned long long)actual,
+                 dev, library_of(caller));
     }
     if (actual != est) {
         vtpu_free(g_region, g_slot, dev, est, VTPU_MEM_BUFFER);
@@ -510,7 +541,7 @@ static CUresult h_cuMemAlloc_v2(CUdeviceptr *dptr, size_t bytesize) {
     }
     rc = real(dptr, bytesize);
     post_alloc_track(rc, &g_ptrs, rc == CUDA_SUCCESS ? *dptr : 0, dev,
-                     bytesize, bytesize);
+                     bytesize, bytesize, __builtin_return_address(0));
     return rc;
 }
 
@@ -529,7 +560,8 @@ static CUresult h_cuMemAllocPitch_v2(CUdeviceptr *dptr, size_t *pPitch,
     }
     rc = real(dptr, pPitch, WidthInBytes, Height, ElementSizeBytes);
     post_alloc_track(rc, &g_ptrs, rc == CUDA_SUCCESS ? *dptr : 0, dev, est,
-                     rc == CUDA_SUCCESS ? (uint64_t)*pPitch * Height : 0);
+                     rc == CUDA_SUCCESS ? (uint64_t)*pPitch * Height : 0,
+                     __builtin_return_address(0));
     return rc;
 }
 
@@ -546,7 +578,8 @@ static CUresult h_cuMemAllocPitch_v2(CUdeviceptr *dptr, size_t *pPitch,
         }                                                                 \
         rc = real(__VA_ARGS__);                                           \
         post_alloc_track(rc, &g_ptrs, rc == CUDA_SUCCESS ? *dptr : 0,     \
-                         dev, bytesize, bytesize);                        \
+                         dev, bytesize, bytesize,                         \
+                         __builtin_return_address(0));                    \
         return rc;                                                        \
     }
 
@@ -582,7 +615,7 @@ static CUresult h_cuMemCreate(CUmemGenericAllocationHandle *handle,
     }
     rc = real(handle, size, prop, flags);
     post_alloc_track(rc, &g_handles, rc == CUDA_SUCCESS ? *handle : 0, dev,
-                     size, size);
+                     size, size, __builtin_return_address(0));
     return rc;
 }
 
@@ -661,15 +694,259 @@ static CUresult h_cuMemGetInfo_v2(size_t *free, size_t *total) {
     return rc;
 }
 
+/* ------------------------------------------------------------ loaded code
+ * The counterpart of register_loaded_executable: a module or library the
+ * process loads is charged, as module memory, the device code its image
+ * holds for the device's SM (vtpu_image.h has the rules), read from the
+ * image or file the caller hands the driver. The driver loads it first; a
+ * charge the slice cannot hold is refused after it, as libvtpu.so refuses
+ * a compiled program: the ordinals already charged are rolled back, the
+ * image is unloaded through the driver, the out-handle set to NULL and
+ * CUDA_ERROR_OUT_OF_MEMORY returned. Under VTPU_OVERSUBSCRIBE the same
+ * charge spills instead. The charge is released once the driver's unload
+ * succeeds.
+ *
+ * The ordinals: a CUmodule belongs to the current context, so its ordinal
+ * is charged. A CUlibrary is context-independent, as an SPMD executable is
+ * multi-device: every ordinal whose primary context the process holds
+ * through the shim is charged, and an ordinal whose primary context is
+ * retained later is charged then for every library still loaded (as the
+ * context's footprint is, without a refusal). Releasing a primary context
+ * frees what it held on its ordinal: that ordinal's charge of every
+ * library, taken again at the next retain, and every module loaded on the
+ * ordinal (the driver unloads a context's modules with it; a module of a
+ * context the process created itself on that ordinal is freed too, as the
+ * shim does not tell the two apart). A library is charged the same bytes
+ * on every ordinal, read for the SM of the device current at its load
+ * (ordinal 0 without a context): a node's cards are of one model. */
+
+static uint32_t g_retained; /* primary contexts held, by ordinal; g_mu */
+
+/* the compute capability of `dev`; 0.0 (no fatbin entry matches, so an
+ * image is charged by the unparsed rule) where the driver does not say */
+static void device_cc(int dev, int *major, int *minor) {
+    __typeof__(&cuDeviceGetAttribute) attr = DRV(cuDeviceGetAttribute);
+    if (!attr ||
+        attr(major, CU_DEVICE_ATTRIBUTE_COMPUTE_CAPABILITY_MAJOR, dev) !=
+            CUDA_SUCCESS ||
+        attr(minor, CU_DEVICE_ATTRIBUTE_COMPUTE_CAPABILITY_MINOR, dev) !=
+            CUDA_SUCCESS) {
+        *major = *minor = 0;
+    }
+}
+
+/* the charge of the image (or the file at `path`) a load hands the
+ * driver, for the SM of `dev`; every load is named in the trace */
+static uint64_t code_bytes(const char *entry, const void *image,
+                           const char *path, int dev) {
+    int major = 0, minor = 0;
+    device_cc(dev, &major, &minor);
+    vtpu_image_charge_t c = {0, VTPU_IMAGE_UNPARSED, 0};
+    if (!path) {
+        c = vtpu_image_charge(image, 0, major, minor);
+    } else if (vtpu_image_charge_file(path, major, minor, &c)) {
+        VTPU_DBG("load %s: cannot read %s", entry, path);
+    }
+    VTPU_DBG("load %s %llu %s sm_%d dev %d sm_%d%d %s", entry,
+             (unsigned long long)c.bytes, vtpu_image_form(c.form), c.arch,
+             dev, major, minor, path ? path : library_of(image));
+    return c.bytes;
+}
+
+/* charges `bytes` of module memory on every ordinal in `mask` (g_mu held);
+ * returns the first ordinal that refuses, the others rolled back, or -1 */
+static int charge_code(uint32_t mask, uint64_t bytes) {
+    for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
+        if ((mask >> d & 1) &&
+            vtpu_try_alloc(g_region, g_slot, d, bytes, VTPU_MEM_MODULE)) {
+            for (int r = 0; r < d; r++) {
+                if (mask >> r & 1) {
+                    vtpu_free(g_region, g_slot, r, bytes, VTPU_MEM_MODULE);
+                }
+            }
+            return d;
+        }
+    }
+    return -1;
+}
+
+static void free_code(uint32_t mask, uint64_t bytes) {
+    for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
+        if (mask >> d & 1) {
+            vtpu_free(g_region, g_slot, d, bytes, VTPU_MEM_MODULE);
+        }
+    }
+}
+
+/* records `handle`'s charge (g_mu held); releases it on host OOM, as
+ * track() does, since the handle could never be matched at unload */
+static void put_code(map_t *m, uint64_t handle, uint32_t mask,
+                     uint64_t bytes) {
+    ent_t *e = map_put(m, handle);
+    if (e) {
+        e->val = bytes;
+        e->dev = (int32_t)mask;
+    } else {
+        free_code(mask, bytes);
+    }
+}
+
+/* after the driver loaded `handle`: charge a module on `dev`, a library
+ * on every retained ordinal; returns the ordinal that refused, or -1 */
+static int admit_code(map_t *m, uint64_t handle, int dev, uint64_t bytes) {
+    pthread_mutex_lock(&g_mu);
+    uint32_t mask = m == &g_libraries ? g_retained : 1u << dev;
+    int refused = charge_code(mask, bytes);
+    if (refused < 0) {
+        put_code(m, handle, mask, bytes);
+    }
+    pthread_mutex_unlock(&g_mu);
+    if (refused >= 0) {
+        fprintf(stderr,
+                "vtpu: HBM limit exceeded on device %d (device code of %llu "
+                "bytes, used %llu, limit %llu)\n", refused,
+                (unsigned long long)bytes,
+                (unsigned long long)vtpu_device_used(g_region, refused),
+                (unsigned long long)g_region->limit[refused]);
+    }
+    return refused;
+}
+
+/* a load entry point: `image` or `path` is what it loads, `out` its
+ * out-handle, `unload` the driver's unload of that handle */
+#define CODE_LOAD_HOOK(name, map, out, unload, image, path, params, ...)   \
+    static CUresult h_##name params {                                     \
+        __typeof__(&name) real = REAL(name);                              \
+        if (!real) {                                                      \
+            return CUDA_ERROR_NOT_FOUND;                                  \
+        }                                                                 \
+        int dev = current_dev();                                          \
+        uint64_t bytes =                                                  \
+            accounting(dev) ? code_bytes(#name, image, path, dev) : 0;    \
+        CUresult rc = real(__VA_ARGS__);                                  \
+        if (rc != CUDA_SUCCESS || bytes == 0 ||                           \
+            admit_code(map, (uint64_t)(uintptr_t)*out, dev, bytes) < 0) { \
+            return rc;                                                    \
+        }                                                                 \
+        __typeof__(&unload) drop = REAL(unload);                          \
+        if (drop) {                                                       \
+            drop(*out);                                                   \
+        }                                                                 \
+        *out = NULL;                                                      \
+        return CUDA_ERROR_OUT_OF_MEMORY;                                  \
+    }
+
+#define LIBRARY_OPTION_ARGS                                               \
+    jitOptions, jitOptionsValues, numJitOptions, libraryOptions,          \
+        libraryOptionValues, numLibraryOptions
+
+CODE_LOAD_HOOK(cuModuleLoad, &g_modules, module, cuModuleUnload, NULL,
+               fname, (CUmodule *module, const char *fname), module, fname)
+CODE_LOAD_HOOK(cuModuleLoadData, &g_modules, module, cuModuleUnload, image,
+               NULL, (CUmodule *module, const void *image), module, image)
+CODE_LOAD_HOOK(cuModuleLoadDataEx, &g_modules, module, cuModuleUnload,
+               image, NULL,
+               (CUmodule *module, const void *image, unsigned int numOptions,
+                CUjit_option *options, void **optionValues),
+               module, image, numOptions, options, optionValues)
+CODE_LOAD_HOOK(cuModuleLoadFatBinary, &g_modules, module, cuModuleUnload,
+               fatCubin, NULL, (CUmodule *module, const void *fatCubin),
+               module, fatCubin)
+CODE_LOAD_HOOK(cuLibraryLoadData, &g_libraries, library, cuLibraryUnload,
+               code, NULL,
+               (CUlibrary *library, const void *code,
+                VTPU_CU_LIBRARY_OPTIONS),
+               library, code, LIBRARY_OPTION_ARGS)
+CODE_LOAD_HOOK(cuLibraryLoadFromFile, &g_libraries, library,
+               cuLibraryUnload, NULL, fileName,
+               (CUlibrary *library, const char *fileName,
+                VTPU_CU_LIBRARY_OPTIONS),
+               library, fileName, LIBRARY_OPTION_ARGS)
+
+#define CODE_UNLOAD_HOOK(name, type, map)                                 \
+    static CUresult h_##name(type handle) {                               \
+        __typeof__(&name) real = REAL(name);                              \
+        if (!real) {                                                      \
+            return CUDA_ERROR_NOT_FOUND;                                  \
+        }                                                                 \
+        uint64_t key = (uint64_t)(uintptr_t)handle, bytes;                \
+        int mask;                                                         \
+        if (!untrack(map, key, &bytes, &mask)) {                          \
+            return real(handle);                                          \
+        }                                                                 \
+        CUresult rc = real(handle);                                       \
+        if (rc == CUDA_SUCCESS) {                                         \
+            free_code((uint32_t)mask, bytes);                             \
+        } else { /* not unloaded after all: still held */                 \
+            pthread_mutex_lock(&g_mu);                                    \
+            put_code(map, key, (uint32_t)mask, bytes);                    \
+            pthread_mutex_unlock(&g_mu);                                  \
+        }                                                                 \
+        return rc;                                                        \
+    }
+
+CODE_UNLOAD_HOOK(cuModuleUnload, CUmodule, &g_modules)
+CODE_UNLOAD_HOOK(cuLibraryUnload, CUlibrary, &g_libraries)
+
+/* a primary context retained afresh on `dev`: the ordinal takes the
+ * charge of every library loaded; returns the bytes charged */
+static uint64_t code_on_retain(int dev) {
+    uint64_t bytes = 0;
+    pthread_mutex_lock(&g_mu);
+    g_retained |= 1u << dev;
+    for (size_t i = 0; i < g_libraries.cap; i++) {
+        ent_t *e = &g_libraries.tab[i];
+        if (e->state == 1 && !(e->dev >> dev & 1)) {
+            e->dev |= 1 << dev;
+            bytes += e->val;
+        }
+    }
+    if (bytes) {
+        vtpu_account(g_region, g_slot, dev, bytes, VTPU_MEM_MODULE);
+    }
+    pthread_mutex_unlock(&g_mu);
+    return bytes;
+}
+
+/* `dev`'s primary context released: what it held on the ordinal is freed */
+static void code_on_release(int dev) {
+    uint64_t bytes = 0;
+    pthread_mutex_lock(&g_mu);
+    g_retained &= ~(1u << dev);
+    for (size_t i = 0; i < g_libraries.cap; i++) {
+        ent_t *e = &g_libraries.tab[i];
+        if (e->state == 1 && (e->dev >> dev & 1)) {
+            e->dev &= ~(1 << dev);
+            bytes += e->val;
+        }
+    }
+    for (size_t i = 0; i < g_modules.cap; i++) {
+        ent_t *e = &g_modules.tab[i];
+        if (e->state == 1 && e->dev == 1 << dev) {
+            bytes += e->val;
+            map_del(&g_modules, e);
+        }
+    }
+    if (bytes) {
+        vtpu_free(g_region, g_slot, dev, bytes, VTPU_MEM_MODULE);
+    }
+    pthread_mutex_unlock(&g_mu);
+}
+
 /* ------------------------------------------------------ context footprint
  * A primary context reserves device memory outside any allocation. It is
  * charged once, as context-kind usage, when the context is created (the
  * counterpart of w_Client_Create's context accounting), and released when
  * its last retain is released. The footprint is the drop in free bytes
  * around the creation, read from a short-lived context of the same
- * device: free bytes cannot be read before the process has a context. */
+ * device: free bytes cannot be read before the process has a context.
+ * Under CUDA_MODULE_LOADING=EAGER the driver loads every library loaded
+ * so far into the context as it creates it: that part of the drop is the
+ * libraries' module charge, taken at the same time, and is not charged
+ * twice. */
 
 static uint64_t g_ctx_bytes[VTPU_MAX_DEVICES]; /* under g_mu */
+static int g_eager; /* CUDA_MODULE_LOADING=EAGER */
 
 static int primary_active(CUdevice dev) {
     unsigned int flags = 0;
@@ -691,23 +968,30 @@ static CUresult h_cuDevicePrimaryCtxRetain(CUcontext *pctx, CUdevice dev) {
     if (!real) {
         return CUDA_ERROR_NOT_FOUND;
     }
+    int fresh = accounting(dev) && !primary_active(dev);
     CUcontext probe = NULL;
     size_t before = 0, after = 0, total = 0;
-    if (accounting(dev) && info && create && destroy && !primary_active(dev)
-        && create(&probe, 0, dev) == CUDA_SUCCESS &&
+    if (fresh && info && create && destroy &&
+        create(&probe, 0, dev) == CUDA_SUCCESS &&
         info(&before, &total) != CUDA_SUCCESS) {
         destroy(probe);
         probe = NULL;
     }
     CUresult rc = real(pctx, dev);
+    uint64_t code = rc == CUDA_SUCCESS && fresh ? code_on_retain(dev) : 0;
     if (probe) {
         int measured = info(&after, &total) == CUDA_SUCCESS;
         destroy(probe); /* pops it: the caller's current context is back */
-        if (rc == CUDA_SUCCESS && measured && before > after) {
-            vtpu_account(g_region, g_slot, dev, before - after,
-                         VTPU_MEM_CONTEXT);
+        uint64_t drop = before > after ? before - after : 0;
+        VTPU_DBG("retain dev %d: free bytes dropped %llu, libraries %llu",
+                 dev, (unsigned long long)drop, (unsigned long long)code);
+        if (g_eager) {
+            drop = drop > code ? drop - code : 0;
+        }
+        if (rc == CUDA_SUCCESS && measured && drop) {
+            vtpu_account(g_region, g_slot, dev, drop, VTPU_MEM_CONTEXT);
             pthread_mutex_lock(&g_mu);
-            g_ctx_bytes[dev] += before - after;
+            g_ctx_bytes[dev] += drop;
             pthread_mutex_unlock(&g_mu);
         }
     }
@@ -729,6 +1013,7 @@ static CUresult h_cuDevicePrimaryCtxRelease_v2(CUdevice dev) {
         if (bytes) {
             vtpu_free(g_region, g_slot, dev, bytes, VTPU_MEM_CONTEXT);
         }
+        code_on_release(dev);
     }
     return rc;
 }
@@ -939,6 +1224,8 @@ LAUNCH_HOOK(cuGraphLaunch_ptsz, hGraphExec, hStream,
 
 __attribute__((constructor)) static void vtpu_init(void) {
     g_debug = env_is_true("VTPU_DEBUG");
+    const char *loading = getenv("CUDA_MODULE_LOADING");
+    g_eager = loading && !strcmp(loading, "EAGER");
     if (env_is_true("VTPU_DISABLE_CONTROL")) {
         g_disabled = 1;
         return;

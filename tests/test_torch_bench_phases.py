@@ -28,7 +28,8 @@ def _child_line(img_per_s=10.0, start=0.0, spill=0, violations=0):
     return {"img_per_s": img_per_s, "best_pass_img_per_s": img_per_s,
             "images": 10, "start": start, "end": start + 1.0,
             "platform": "cpu", "device": "cpu", "total_bytes": 0, "batch": 1,
-            "image_size": 32, "hbm_used_bytes": 0, "hbm_cap_bytes": 0,
+            "image_size": 32, "hbm_used_bytes": 0, "hbm_module_bytes": 0,
+            "hbm_cap_bytes": 0,
             "violations": violations, "spill_bytes": spill,
             "flops_per_img": 1.0}
 

@@ -11,19 +11,29 @@ accounting, the context's footprint, the duty-cycle bucket on every launch
 entry point, the measured-cost EMA, the monitor's priority block, the
 clamped memory info, oversubscription, a slice shared across processes,
 fail-open, and interception by a direct call, by ``dlsym`` on the driver's
-handle and by ``cuGetProcAddress_v2``.
+handle and by ``cuGetProcAddress_v2``, of the allocation, launch and load
+hooks alike. Loaded device code (the counterparts of the reference's
+module tests): every load entry point charges its image's code for the
+device's SM as the module kind, refuses a load past the cap and frees
+the charge at unload; a library is charged on every ordinal whose
+primary context is held, and ordinal 1's primary context is retained
+and released again and again; a fatbin is charged its entry for the
+device's SM only. The images are built by hand
+(``cuda_ctypes.cubin``, ``cuda_ctypes.fatbin``): no nvcc.
 
 The port is also held against the reference: one seeded trace of
-allocations, frees and launches goes through ``libvtpu.so`` over
-``libtpu_mock.so`` (built from ``lib/tpu``, driven with
-``tests/pjrt_ctypes.py``) and through the port's shim over the mock
-driver, and both must refuse the same allocations, end with the same
-usage and spill, and wait on the bucket as often. The region both write
-is held to ``lib/tpu/vtpu_shm.h``'s layout.
+allocations, frees and launches (and, in one case, loads and unloads of
+device code) goes through ``libvtpu.so`` over ``libtpu_mock.so`` (built
+from ``lib/tpu``, driven with ``tests/pjrt_ctypes.py``) and through the
+port's shim over the mock driver, and both must refuse the same
+allocations and loads, end with the same usage, module usage and spill,
+and wait on the bucket as often. The region both write is held to
+``lib/tpu/vtpu_shm.h``'s layout.
 """
 
 import json
 import os
+import struct
 import subprocess
 import sys
 import textwrap
@@ -32,6 +42,7 @@ import time
 import numpy as np
 import pytest
 
+import cuda_ctypes as cc
 from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.shm import region as tregion
 from k8s_device_plugin_torch.shm.region import Region
@@ -489,19 +500,339 @@ def test_priority_block(libs, tmp_path, core):
                                "VTPU_EXEC_COST_US": "100"}), "BLOCK_OK")
 
 
+# ----------------------------------------------------------- device code
+
+#: a 4 MiB image by the section rule: text, constants and globals count,
+#: per-block shared memory and the info section do not
+SMALL_IMAGE = [(".text.k", 3 * MB, False), (".nv.constant0.k", MB // 2, False),
+         (".nv.global", MB // 2, True), (".nv.shared.k", MB, True),
+         (".nv.info.k", 100, False)]
+#: 600 MiB of device globals: past the 512 MiB cap, and a tiny image
+BIG_IMAGE = [(".text.k", 4096, False), (".nv.global", 600 * MB, True)]
+
+
+def _result(res) -> dict:
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT")]
+    assert line, res.stdout + res.stderr
+    return json.loads(line[0][len("RESULT "):])
+
+
+def _body(text: str) -> str:
+    """A subprocess body with ``charged(devs)``: the module kind this
+    process holds on ordinal 0, or on ordinals 0 .. devs - 1."""
+    return textwrap.dedent("""
+    import json
+    from k8s_device_plugin_torch.shm.region import KIND_MODULE
+
+    def charged(devs=1):
+        r = region()
+        p = r.active_procs()[0]
+        v = [p.used[d].kinds[KIND_MODULE] for d in range(devs)]
+        del p
+        r.close()
+        return v if devs > 1 else v[0]
+    """) + textwrap.dedent(text)
+
+
+@pytest.fixture(scope="module")
+def load_results(libs, tmp_path_factory):
+    """Every load entry point in one process: a 4 MiB image loaded, a
+    function of it launched, a 600 MiB one refused, the first unloaded."""
+    tmp = tmp_path_factory.mktemp("loads")
+    paths = {}
+    for name, sections in (("small", SMALL_IMAGE), ("big", BIG_IMAGE)):
+        paths[name] = str(tmp / f"{name}.cubin")
+        with open(paths[name], "wb") as f:
+            f.write(cc.cubin(sections))
+    body = _body(f"""
+    images = {{n: open(p, "rb").read() for n, p in {paths!r}.items()}}
+    out = {{}}
+    for how in cc.LOADERS:
+        res = {{}}
+        load = lambda n: cu.load(how, images[n], {paths!r}[n])
+        rc, h = load("small")
+        res.update(rc=rc, charged=charged(), mock_bytes=cu.counters()[6],
+                   launch=cu.launch(cu.function(h, how)))
+        rc, big = load("big")
+        res.update(big_rc=rc, big_handle=big, after_refusal=charged(),
+                   live_after_refusal=cu.counters()[5])
+        res.update(unload=cu.unload(h, how), after_unload=charged(),
+                   live=cu.counters()[5], unload_again=cu.unload(h, how))
+        out[how] = res
+    print("RESULT", json.dumps(out))
+    """)
+    res = run_wrapped(libs, tmp / "cache", body)
+    return res, _result(res)
+
+
+@pytest.mark.parametrize("how", list(cc.LOADERS))
+def test_module_accounting_and_load_oom(load_results, how):
+    """Each load entry point charges a 4 MiB image exactly 4 MiB as the
+    module kind (the driver holds the same); a 600 MiB image under the
+    512 MiB cap is refused with CUDA_ERROR_OUT_OF_MEMORY, its handle
+    NULL, no charge left behind and no module left in the driver;
+    unloading frees the charge, and a second unload of the same handle is
+    the driver's error and frees nothing."""
+    res, out = load_results
+    got = out[how]
+    assert got["rc"] == cc.CUDA_SUCCESS and got["launch"] == cc.CUDA_SUCCESS
+    assert got["charged"] == got["mock_bytes"] == 4 * MB, got
+    assert got["big_rc"] == cc.CUDA_ERROR_OUT_OF_MEMORY, got
+    assert got["big_handle"] is None
+    assert got["after_refusal"] == 4 * MB and got["live_after_refusal"] == 1
+    assert got["unload"] == cc.CUDA_SUCCESS, got
+    assert got["after_unload"] == 0 and got["live"] == 0, got
+    assert got["unload_again"] == cc.CUDA_ERROR_INVALID_HANDLE
+    assert "HBM limit exceeded on device 0 (device code of" in res.stderr
+
+
+def test_library_charged_per_ordinal(libs, tmp_path):
+    """Four devices, each with its own cap. A library is charged on every
+    ordinal whose primary context the process holds: loaded with only
+    ordinal 0 held, then charged on 1-3 as their contexts are retained,
+    and freed on all four at unload. A library that ordinal 2's 64 MiB
+    cannot hold is refused there, and 0 and 1, charged first, are rolled
+    back. A module is charged on its context's ordinal alone."""
+    body = _body("""
+    lib_img = cc.cubin([(".nv.global", 4 * MB, True)])
+    rc, lib = cu.load("library_data", lib_img)
+    assert rc == cc.CUDA_SUCCESS and charged(4) == [4 * MB, 0, 0, 0]
+    for dev in (1, 2, 3):
+        ctx = cc.c_void_p()
+        assert cu.fn("cuDevicePrimaryCtxRetain")(cc.ctypes.byref(ctx),
+                                                 dev) == 0
+    assert charged(4) == [4 * MB] * 4, charged(4)
+    rc, mod = cu.load("module_data", cc.cubin([(".nv.global", MB, True)]))
+    assert rc == cc.CUDA_SUCCESS and charged(4) == [5 * MB] + [4 * MB] * 3
+    assert cu.unload(mod, "module_data") == 0
+    assert cu.unload(lib, "library_data") == 0 and charged(4) == [0] * 4
+    rc, h = cu.load("library_data", cc.cubin([(".nv.global", 100 * MB,
+                                               True)]))
+    assert rc == cc.CUDA_ERROR_OUT_OF_MEMORY and h is None, rc
+    assert charged(4) == [0] * 4, charged(4)
+    assert cu.counters()[5] == 0
+    print("ORDINALS_OK")
+    """)
+    res = run_wrapped(libs, tmp_path / "cache", body, extra_env={
+        "VTPU_MOCK_CUDA_DEVICES": "4",
+        "VTPU_DEVICE_MEMORY_LIMIT_1": str(256 * MB),
+        "VTPU_DEVICE_MEMORY_LIMIT_2": str(64 * MB),
+        "VTPU_DEVICE_MEMORY_LIMIT_3": str(512 * MB)})
+    _ok(res, "ORDINALS_OK")
+    assert "HBM limit exceeded on device 2 (device code of" in res.stderr
+
+
+def test_primary_contexts_recycled(libs, tmp_path):
+    """Retain and release ordinal 1's primary context twelve times: each
+    time an allocation above ordinal 0's 512 MiB cap succeeds on ordinal
+    1 (it must not fall back to ordinal 0), and ordinal 1 holds the
+    context's footprint, the loaded library's charge and a module loaded
+    in the context, all freed when the context is released (the driver
+    unloads a context's modules with it; unloading one later frees
+    nothing twice)."""
+    body = """
+    from k8s_device_plugin_torch.shm.region import (KIND_BUFFER,
+                                                    KIND_CONTEXT,
+                                                    KIND_MODULE)
+    rc, lib = cu.load("library_data", cc.cubin([(".nv.global", 2 * MB,
+                                                 True)]))
+    assert rc == cc.CUDA_SUCCESS
+    r = region()
+
+    def on(dev):
+        p = r.active_procs()[0]
+        u = p.used[dev]
+        v = (u.kinds[KIND_BUFFER], u.kinds[KIND_CONTEXT],
+             u.kinds[KIND_MODULE], u.total)
+        del p, u
+        return v
+
+    module = cc.cubin([(".nv.global", MB, True)])
+    gone = []
+    for i in range(12):
+        ctx = cc.c_void_p()
+        assert cu.fn("cuDevicePrimaryCtxRetain")(cc.ctypes.byref(ctx),
+                                                 1) == 0, i
+        assert cu.fn("cuCtxSetCurrent")(ctx) == 0
+        rc, h = cu.alloc(600 * MB)
+        assert rc == cc.CUDA_SUCCESS, f"cycle {i}: ordinal fell back to 0"
+        rc, mod = cu.load("module_data", module)
+        assert rc == cc.CUDA_SUCCESS
+        gone.append(mod)
+        assert on(1) == (600 * MB, 32 * MB, 3 * MB, 635 * MB), (i, on(1))
+        assert cu.free(h) == cc.CUDA_SUCCESS
+        cu.make_current()
+        assert cu.release(1) == 0
+        assert on(1) == (0, 0, 0, 0), (i, on(1))
+    for mod in gone:
+        assert cu.unload(mod, "module_data") == cc.CUDA_SUCCESS
+    assert on(1) == (0, 0, 0, 0) and on(0) == (0, 32 * MB, 2 * MB, 34 * MB)
+    r.close()
+    print("RECYCLE_OK")
+    """
+    _ok(run_wrapped(libs, tmp_path / "cache", body, extra_env={
+        "VTPU_MOCK_CUDA_DEVICES": "2",
+        "VTPU_MOCK_CUDA_CTX_BYTES": str(32 * MB)}), "RECYCLE_OK")
+
+
+# ----------------------------------------------------------------- fatbins
+
+def _device_bytes(sections) -> int:
+    return sum(size for name, size, _ in sections
+               if name.startswith((".text", ".nv.constant", ".nv.global")))
+
+
+SM80 = [(".text.a", 300_000, False), (".nv.constant0.a", 4096, False)]
+SM86 = [(".text.c", 250_000, False), (".nv.global.init", 512, False)]
+SM90 = [(".text.b", 200_000, False), (".nv.global", 8192, True),
+        (".nv.shared.b", 65536, True)]
+PTX = b"//\n// Generated by NVIDIA NVVM Compiler\n.version 8.5\n.target sm_80\n"
+
+
+def _fatbin_cases() -> dict:
+    """case -> (image as a load hands it over, the device, the charge)."""
+    sm80, sm86, sm90 = cc.cubin(SM80), cc.cubin(SM86), cc.cubin(SM90)
+    both = cc.fatbin([("elf", 80, sm80, 0), ("elf", 86, sm86, 0),
+                      ("elf", 90, sm90, 0)])
+    none = cc.fatbin([("elf", 70, sm80, 0), ("elf", 80, sm80, 0)])
+    return {
+        # the sm_90 entry alone, never the whole fatbin
+        "sm90": (both, "9.0", _device_bytes(SM90)),
+        # a device runs the cubin of its major with the highest minor not
+        # above its own
+        "sm86_on_8_6": (both, "8.6", _device_bytes(SM86)),
+        "sm80_on_8_0": (both, "8.0", _device_bytes(SM80)),
+        # the runtime's registration record, followed to its fatbin
+        "wrapper": ("wrapper", "9.0", _device_bytes(SM90)),
+        # a compressed entry: its stated uncompressed size
+        "compressed": (cc.fatbin([
+            ("elf", 80, sm80, 0),
+            ("elf", 90, b"\x28\xb5\x2f\xfd" + bytes(4000), 3 * MB)]),
+            "9.0", 3 * MB),
+        # no cubin for the device, PTX the driver compiles: the PTX text
+        "ptx_entry": (cc.fatbin([("elf", 80, sm80, 0), ("ptx", 80, PTX, 0)]),
+                      "9.0", len(PTX)),
+        "ptx_text": (PTX + b"\0", "9.0", len(PTX)),
+        # no entry the device can run: none of it reaches the card
+        "no_entry": (none, "9.0", 0),
+        # an ELF whose section table lies past its end: the file's length
+        "truncated": (cc.cubin(SM90)[:1000], "9.0", 1000),
+    }
+
+
+@pytest.fixture(scope="module")
+def fatbin_charges(libs, tmp_path_factory):
+    """Each case's module-kind charge, one process per device model."""
+    tmp = tmp_path_factory.mktemp("fatbins")
+    cases = _fatbin_cases()
+    out = {}
+    for model in sorted({m for _, m, _ in cases.values()}):
+        images = {}
+        for name, (image, m, _) in cases.items():
+            if m == model and image != "wrapper":
+                images[name] = str(tmp / f"{name}.img")
+                with open(images[name], "wb") as f:
+                    f.write(image)
+        body = _body(f"""
+        import ctypes, struct
+        out = {{}}
+        images = {{n: open(p, "rb").read() for n, p in {images!r}.items()}}
+        if {model == "9.0"}:  # the registration record of the sm90 fatbin
+            fat = ctypes.create_string_buffer(images["sm90"])
+            images["wrapper"] = struct.pack(
+                "<iiQQ", cc.FATBIN_WRAPPER_MAGIC, 1, ctypes.addressof(fat), 0)
+        for name, image in images.items():
+            how = "module" if name == "truncated" else "module_data"
+            rc, h = cu.load(how, image, {images!r}.get(name))
+            out[name] = charged()
+            assert rc == 0 and cu.unload(h, how) == 0 and charged() == 0
+        print("RESULT", json.dumps(out))
+        """)
+        res = run_wrapped(libs, tmp / f"cache{model}", body,
+                          extra_env={"VTPU_MOCK_CUDA_CC": model,
+                                     "VTPU_DEBUG": "1"})
+        out.update(_result(res))
+        out.setdefault("stderr", "")
+        out["stderr"] += res.stderr
+    return out
+
+
+@pytest.mark.parametrize("case", list(_fatbin_cases()))
+def test_fatbin_charged_for_the_device(fatbin_charges, case):
+    """A fatbin is charged its cubin entry for the device's SM, never the
+    whole fatbin; a compressed entry its stated uncompressed size; PTX its
+    text; a fatbin with no entry the device can run nothing; an image
+    whose tables lie outside it the size it states for itself. The trace
+    names the rule that charged each load."""
+    assert fatbin_charges[case] == _fatbin_cases()[case][2], case
+    form = {"sm90": "fatbin", "sm86_on_8_6": "fatbin",
+            "sm80_on_8_0": "fatbin", "wrapper": "fatbin",
+            "compressed": "compressed", "ptx_entry": "ptx",
+            "ptx_text": "ptx", "no_entry": "none",
+            "truncated": "unparsed"}[case]
+    assert f" {fatbin_charges[case]} {form} " in fatbin_charges["stderr"]
+
+
+# ---------------------------------------------------------- fail-open, spill
+
+@pytest.mark.parametrize("case", ["kill_switch", "oversubscribe"])
+def test_module_kill_switch_and_spill(libs, tmp_path, case):
+    """The kill switch: a 600 MiB image loads past the 512 MiB cap and
+    nothing is charged (no region is made). Under VTPU_OVERSUBSCRIBE=1
+    the same load spills: admitted, charged, and the usage above the cap
+    shows as spill."""
+    body = _body(f"""
+    rc, h = cu.load("library_data", cc.cubin({BIG_IMAGE!r}))
+    assert rc == cc.CUDA_SUCCESS, rc
+    if {case == "oversubscribe"}:
+        r = region()
+        assert charged() == 600 * MB + 4096
+        assert r.device_used(0) - r.data.limit[0] == 88 * MB + 4096
+        r.close()
+    assert cu.unload(h, "library_data") == cc.CUDA_SUCCESS
+    print("SPILL_OK")
+    """)
+    env = ({"VTPU_DISABLE_CONTROL": "true"} if case == "kill_switch"
+           else {"VTPU_OVERSUBSCRIBE": "1"})
+    cache = tmp_path / "cache"
+    _ok(run_wrapped(libs, cache, body, extra_env=env), "SPILL_OK")
+    assert os.path.exists(cache / "vtpu.cache") == (case == "oversubscribe")
+
+
+def test_hand_built_images_state_their_sizes():
+    """The hand-built images carry the layouts the shim reads: the ELF
+    header's section table at its stated offset, the fatbin header's
+    stated size covering its entries."""
+    img = cc.cubin(SMALL_IMAGE)
+    shoff, = struct.unpack_from("<Q", img, 40)
+    shnum, = struct.unpack_from("<H", img, 60)
+    assert img[:4] == b"\x7fELF" and shoff + 64 * shnum == len(img)
+    fat = cc.fatbin([("elf", 90, img, 0)])
+    magic, _, header, size = struct.unpack_from("<IHHQ", fat)
+    assert magic == cc.FATBIN_MAGIC and header + size == len(fat)
+
+
 # ---------------------------------------------------------- interception
 
 DIRECT = r"""
 #include "cuda_driver_abi.h"
 #include <stdio.h>
-int main(void) {
+int main(int argc, char **argv) {
     CUcontext ctx;
     CUdeviceptr p;
-    if (cuInit(0) || cuDevicePrimaryCtxRetain(&ctx, 0) ||
-        cuCtxSetCurrent(ctx)) {
+    CUmodule mod;
+    CUlibrary lib;
+    static char image[1 << 16];
+    FILE *f = argc > 1 ? fopen(argv[1], "rb") : NULL;
+    if (!f || !fread(image, 1, sizeof(image), f) || cuInit(0) ||
+        cuDevicePrimaryCtxRetain(&ctx, 0) || cuCtxSetCurrent(ctx)) {
         return 1;
     }
+    fclose(f);
     printf("RC %d\n", (int)cuMemAlloc_v2(&p, 600u << 20));
+    printf("LOAD %d\n", (int)cuModuleLoadData(&mod, image));
+    printf("LIBRARY %d\n", (int)cuLibraryLoadData(&lib, image, NULL, NULL,
+                                                   0, NULL, NULL, 0));
     return 0;
 }
 """
@@ -512,22 +843,28 @@ def test_interception_routes(libs, tmp_path, route):
     """The shim catches a call by each route a client reaches the driver
     by: a direct call of a program linked against the driver, dlsym on
     the driver's handle, and cuGetProcAddress_v2 (matching the version
-    and, for a stream-ordered call, the per-thread stream flag). Names it
-    does not hook resolve to the driver's own entry points."""
+    and, for a stream-ordered call, the per-thread stream flag): an
+    allocation, a launch, and a module's and a library's load past the
+    cap. Names it does not hook resolve to the driver's own entry
+    points."""
     cache = tmp_path / "cache"
     if route == "direct":
         src = tmp_path / "direct.c"
         src.write_text(DIRECT)
+        image = tmp_path / "big.cubin"
+        image.write_bytes(cc.cubin(BIG_IMAGE))
         prog = str(tmp_path / "direct")
         _cc(prog, "-I", _build.CSRC_DIR, str(src), libs["cuda_mock"],
             f"-Wl,-rpath,{os.path.dirname(libs['cuda_mock'])}")
         os.makedirs(cache)
         for preload, want in ((True, 2), (False, 0)):
-            res = subprocess.run([prog], capture_output=True, text=True,
-                                 env=_env(libs, cache, 512 * MB,
-                                          preload=preload), timeout=60)
-            assert f"RC {want}" in res.stdout, (preload, res.stdout,
-                                                res.stderr)
+            res = subprocess.run([prog, str(image)], capture_output=True,
+                                 text=True, env=_env(libs, cache, 512 * MB,
+                                                     preload=preload),
+                                 timeout=60)
+            for call in ("RC", "LOAD", "LIBRARY"):
+                assert f"{call} {want}" in res.stdout, (
+                    preload, res.stdout, res.stderr)
         return
     flags = 2 if route == "proc_ptsz" else 0
     body = """
@@ -540,6 +877,13 @@ def test_interception_routes(libs, tmp_path, route):
     assert cu.alloc(600 * MB)[0] == cc.CUDA_ERROR_OUT_OF_MEMORY
     assert cu.launch() == cc.CUDA_SUCCESS
     assert cu.counters()[:2] == ([0, 1] if cu.flags else [1, 0])
+    for name in ("cuModuleLoadData", "cuModuleUnload", "cuLibraryLoadData",
+                 "cuLibraryUnload"):
+        assert cu.address(name) == ours(name), name
+    big = cc.cubin(BIG_IMAGE)
+    for how in ("module_data", "library_data"):
+        assert cu.load(how, big) == (cc.CUDA_ERROR_OUT_OF_MEMORY, None)
+    assert cu.counters()[5] == 0  # the driver unloaded both
     if cu.route == "proc":
         fn = cu.fn("cuGetProcAddress_v2")
         pfn, st = ctypes.c_void_p(), ctypes.c_int()
@@ -553,6 +897,7 @@ def test_interception_routes(libs, tmp_path, route):
                   ctypes.byref(st)) != 0 and not pfn.value
     print("ROUTE_OK")
     """
+    body = f"BIG_IMAGE = {BIG_IMAGE!r}\n" + textwrap.dedent(body)
     _ok(run_wrapped(libs, cache, body, route=route[:5], flags=flags),
         "ROUTE_OK")
 
@@ -568,44 +913,55 @@ def native(tmp_path_factory):
     return str(out)
 
 
-def _trace(seed: int = 0, ops: int = 60) -> list:
+def _trace(seed: int = 0, ops: int = 60, loads: bool = False) -> list:
     """A seeded trace: ("alloc", MiB), ("free", k-th live allocation)
-    and ("launch",)."""
+    and ("launch",); with ``loads``, also ("load", MiB) of device code
+    and ("unload", k-th live load)."""
     rng = np.random.default_rng(seed)
+    kinds = ((0.3, "alloc"), (0.45, "free"), (0.6, "load"), (0.75, "unload"))
+    if not loads:
+        kinds = ((0.5, "alloc"), (0.75, "free"))
     trace = []
     for _ in range(ops):
         u = rng.random()
-        if u < 0.5:
-            trace.append(("alloc", int(rng.integers(1, 64))))
-        elif u < 0.75:
-            trace.append(("free", int(rng.integers(0, 1 << 16))))
+        kind = next((k for bound, k in kinds if u < bound), "launch")
+        if kind in ("alloc", "load"):
+            trace.append((kind, int(rng.integers(1, 64))))
+        elif kind in ("free", "unload"):
+            trace.append((kind, int(rng.integers(0, 1 << 16))))
         else:
             trace.append(("launch",))
     return trace
 
 
 #: the trace's runner, on either side: alloc(MiB) -> (failed, handle),
-#: free(handle), launch(); prints the refusal indices, the final usage and
-#: the launches that waited on the bucket (over 10 ms: a wait is ~40 ms)
+#: free(handle), load(MiB) -> (failed, handle), unload(handle), launch();
+#: prints the refusal indices, the final usage and module usage, and the
+#: launches that waited on the bucket (over 10 ms: a wait is ~40 ms)
 _REPLAY = """
-refused, live, waited = [], [], 0
+refused, live, waited = [], {"alloc": [], "load": []}, 0
 for i, op in enumerate(TRACE):
-    if op[0] == "alloc":
-        failed, h = alloc(op[1] * MB)
+    if op[0] in ("alloc", "load"):
+        failed, h = (alloc if op[0] == "alloc" else load)(op[1] * MB)
         if failed:
             refused.append(i)
         else:
-            live.append(h)
-    elif op[0] == "free" and live:
-        free(live.pop(op[1] % len(live)))
+            live[op[0]].append(h)
+    elif op[0] in ("free", "unload"):
+        held = live["alloc" if op[0] == "free" else "load"]
+        if held:
+            (free if op[0] == "free" else unload)(
+                held.pop(op[1] % len(held)))
     elif op[0] == "launch":
         t0 = time.perf_counter()
         launch()
         waited += time.perf_counter() - t0 > 0.010
 r = Region(os.path.join(CACHE, "vtpu.cache"), create=False)
 used = r.device_used(0)
+module = sum(p.used[0].kinds[1] for p in r.active_procs())
 r.close()
 print("RESULT", json.dumps({"refused": refused, "used": used,
+                            "module": module,
                             "spill": max(0, used - CAP), "waits": waited}))
 """
 
@@ -624,14 +980,21 @@ def _replay(cmd_env, prelude, trace, cache, cap):
     return json.loads(line[0][len("RESULT "):])
 
 
-@pytest.mark.parametrize("oversubscribe", [False, True])
-def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe):
+@pytest.mark.parametrize("oversubscribe, loads",
+                         [(False, False), (True, False), (False, True)],
+                         ids=["False", "True", "loads"])
+def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe,
+                                   loads):
     """One seeded trace through libvtpu.so over libtpu_mock.so and through
     the port's shim over the mock driver, under a 256 MiB cap, a 50% core
     limit and a pinned 20 ms a launch: the same refusal indices, the same
-    final usage and spill, the same number of bucket waits. Exact."""
+    final usage, module usage and spill, the same number of bucket waits.
+    Exact. Both sides run a 1-byte program (a compiled executable, a
+    loaded module) whose launches the trace makes; the ``loads`` case
+    also compiles and destroys programs, and loads and unloads modules,
+    beside the allocations."""
     cap = 256 * MB
-    trace = _trace()
+    trace = _trace(ops=80 if loads else 60, loads=loads)
     contract = {"VTPU_DEVICE_CORE_LIMIT": "50", "VTPU_EXEC_COST_US": "20000"}
     if oversubscribe:
         contract["VTPU_OVERSUBSCRIBE"] = "1"
@@ -641,11 +1004,11 @@ def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe):
                     os.path.join(native, "libtpu_mock.so"),
                     "VTPU_MOCK_PJRT_DEVS": "1", "VTPU_MOCK_OUT_BYTES": "0"})
     jax = _replay(jax_env, f"""
+        import ctypes
         import pjrt_ctypes as pc
         api = pc.PjrtApi({os.path.join(native, 'libvtpu.so')!r})
         client = api.client_create()
-        # the program the launches run holds 1 byte (module kind); the
-        # port's side holds a 1-byte allocation in its place
+        # the program the launches run holds 1 byte (module kind)
         err, exe = api.compile(client, code=b"x")
         assert not err
 
@@ -660,6 +1023,25 @@ def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe):
         def free(buf):
             api.buffer_destroy(buf)
 
+        def load(n):
+            # the mock's program of n bytes: it reads the size alone, so
+            # no n-byte string is built (its time would refill the bucket)
+            prog = pc.Program.make(code=b"x", code_size=n, format=b"hlo",
+                                   format_size=3)
+            args = pc.ClientCompileArgs.make(client=client,
+                                             program=ctypes.pointer(prog))
+            err, loaded = api.call("PJRT_Client_Compile", args), \\
+                args.executable
+            if err:
+                assert api.error_code(err) == \\
+                    pc.PJRT_Error_Code_RESOURCE_EXHAUSTED
+                api.error_destroy(err)
+            return bool(err), loaded
+
+        def unload(loaded):
+            args = pc.LoadedExecutableDestroyArgs.make(executable=loaded)
+            assert not api.call("PJRT_LoadedExecutable_Destroy", args)
+
         def launch():
             err, outs = api.execute(exe)
             assert not err
@@ -669,7 +1051,10 @@ def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe):
         import cuda_ctypes as cc
         cu = cc.Cuda(os.environ["VTPU_REAL_CUDA_LIBRARY"])
         cu.init()
-        assert cu.alloc(1)[0] == cc.CUDA_SUCCESS
+        # the program the launches run: a module of 1 byte of code
+        rc, mod = cu.load("module_data", cc.cubin([(".text.k", 1, False)]))
+        assert rc == cc.CUDA_SUCCESS
+        kernel = cu.function(mod, "module_data")
 
         def alloc(n):
             rc, h = cu.alloc(n)
@@ -679,16 +1064,28 @@ def test_trace_parity_with_libvtpu(libs, native, tmp_path, oversubscribe):
         def free(h):
             assert cu.free(h) == cc.CUDA_SUCCESS
 
+        def load(n):
+            rc, h = cu.load("module_data",
+                            cc.cubin([(".nv.global", n, True)]))
+            assert rc in (cc.CUDA_SUCCESS, cc.CUDA_ERROR_OUT_OF_MEMORY)
+            return rc != cc.CUDA_SUCCESS, h
+
+        def unload(h):
+            assert cu.unload(h, "module_data") == cc.CUDA_SUCCESS
+
         def launch():
-            assert cu.launch() == cc.CUDA_SUCCESS
+            assert cu.launch(kernel) == cc.CUDA_SUCCESS
         """, trace, tmp_path / "port", cap)
     assert port == jax
     # the trace exercises what it compares
-    assert port["waits"] >= 3
+    assert port["waits"] >= 3 and port["module"] >= 1
     if oversubscribe:
         assert port["refused"] == [] and port["spill"] > 0
     else:
         assert len(port["refused"]) >= 3 and port["spill"] == 0
+    if loads:
+        assert sum(trace[i][0] == "load" for i in port["refused"]) >= 2
+        assert port["module"] > 1  # loads still held at the end
 
 
 # --------------------------------------------------------- region layout

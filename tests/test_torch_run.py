@@ -377,6 +377,9 @@ def test_bench_assembles_the_share_result(tmp_path, monkeypatch):
     duty = extra["duty_check"]
     assert duty["ratio"] == pytest.approx(duty["capped50_img_per_s"]
                                           / duty["uncapped_img_per_s"])
+    # plain children on the CPU: no shim, so no device code charged
+    assert extra["module_bytes"] == {"share": [0, 0], "oversubscribe": [0],
+                                     "duty_check": [0, 0]}
 
 
 def test_runner_defaults_to_the_card(monkeypatch):

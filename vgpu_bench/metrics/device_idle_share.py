@@ -1,0 +1,8 @@
+"""The card's idle share of the window, in %: 1 - the union of every
+tenant's device operations over the window."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])

@@ -1,0 +1,23 @@
+"""K2's (``lstm_cell``) share of its roofline, in %: the least time one
+launch could take (the larger of its bytes over HBM's peak and its FLOP
+over the bf16 peak) over its mean device time in the trace, its launches'
+share of the card's busy time (``trace.merge``: a launch preempted for a
+neighbour's slice is not charged the slice) over their number."""
+
+from vgpu_bench.counts import PEAK_BF16_FLOPS, PEAK_HBM_BYTES
+
+
+def read(run):
+    cost = run.counts.kernel_cost(run.config).get("lstm_cell")
+    if run.trace is None or cost is None:
+        return None
+    count = seconds = 0
+    for name, (k, s) in run.trace["ops"].items():
+        if "lstm_cell" in name:
+            count += k
+            seconds += s
+    if not count:
+        return None
+    flops, nbytes = cost
+    bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_BF16_FLOPS)
+    return 100.0 * bound / (seconds / count)

@@ -42,6 +42,11 @@
  * Fail-open rules, as libvtpu.so's: the kill switch
  * VTPU_DISABLE_CONTROL=true, or no VTPU_DEVICE_MEMORY_SHARED_CACHE, and
  * no hook accounts or throttles anything (each forwards as it is).
+ *
+ * Its own account of the launch hooks, per ordinal, and the spans of its
+ * waits on the duty bucket are read in the process it is loaded in with
+ * vtpu_cuda_counters() and vtpu_cuda_spans() (shm/counters.py in Python):
+ * process-local, never in the region.
  */
 
 #define _GNU_SOURCE
@@ -82,10 +87,14 @@ static int env_is_true(const char *name) {
     return v && (!strcmp(v, "true") || !strcmp(v, "1") || !strcmp(v, "on"));
 }
 
-static uint64_t now_mono_us(void) {
+static uint64_t clock_ns(clockid_t clock) {
     struct timespec ts;
-    clock_gettime(CLOCK_MONOTONIC, &ts);
-    return (uint64_t)ts.tv_sec * 1000000ull + (uint64_t)ts.tv_nsec / 1000ull;
+    clock_gettime(clock, &ts);
+    return (uint64_t)ts.tv_sec * 1000000000ull + (uint64_t)ts.tv_nsec;
+}
+
+static uint64_t now_mono_us(void) {
+    return clock_ns(CLOCK_MONOTONIC) / 1000ull;
 }
 
 static int accounting(int dev) {
@@ -1018,6 +1027,112 @@ static CUresult h_cuDevicePrimaryCtxRelease_v2(CUdevice dev) {
     return rc;
 }
 
+/* ------------------------------------------------------------- counters
+ * The shim's own account of its launch hooks, one set per ordinal, kept
+ * in this process only (the region's layout is lib/tpu's) with relaxed
+ * atomic adds, and read with vtpu_cuda_counters(). Every field only
+ * grows; a reader takes the difference of two reads. shm/counters.py
+ * mirrors the struct; a caller sets `size` to its own sizeof, and the shim
+ * fills no more than that and sets `size` to what it filled. */
+
+#define VTPU_CUDA_COUNTERS_VERSION 1u
+
+typedef struct {
+    uint32_t size;
+    uint32_t version;
+    uint64_t launches;   /* calls through a launch hook; a graph's is one */
+    uint64_t charged_us; /* the cost handed to the bucket, per launch */
+    uint64_t granted_us; /* the cost the bucket granted (in batches) */
+    uint64_t waits;      /* the bucket's calls that slept */
+    uint64_t slept_ns;   /* the time they slept */
+    uint64_t hook_ns;    /* the hooks' own time, less the sleeps */
+    uint64_t driver_ns;  /* the time inside the driver's launch call */
+    uint64_t timed;      /* event-timed launches read into the cost EMA */
+    uint64_t timed_us;   /* the device time they read */
+} vtpu_cuda_counters_t;
+
+static vtpu_cuda_counters_t g_counters[VTPU_MAX_DEVICES];
+
+#define COUNT(dev, field, n)                                              \
+    __atomic_add_fetch(&g_counters[dev].field, (n), __ATOMIC_RELAXED)
+
+/* copies ordinal `dev`'s counters into `out`; returns 0, or -1 where the
+ * shim holds nothing (it failed open) or the arguments are wrong */
+int vtpu_cuda_counters(int dev, vtpu_cuda_counters_t *out) {
+    size_t head = offsetof(vtpu_cuda_counters_t, launches);
+    if (!g_region || dev < 0 || dev >= VTPU_MAX_DEVICES || !out ||
+        out->size < head) {
+        return -1;
+    }
+    vtpu_cuda_counters_t now = {.size = sizeof(now),
+                                .version = VTPU_CUDA_COUNTERS_VERSION};
+    const uint64_t *from = &g_counters[dev].launches;
+    uint64_t *to = &now.launches;
+    for (size_t i = 0; i < (sizeof(now) - head) / sizeof(uint64_t); i++) {
+        to[i] = __atomic_load_n(&from[i], __ATOMIC_RELAXED);
+    }
+    size_t size = out->size < sizeof(now) ? out->size : sizeof(now);
+    memcpy((char *)out + head, (char *)&now + head, size - head);
+    out->size = (uint32_t)size;
+    out->version = VTPU_CUDA_COUNTERS_VERSION;
+    return 0;
+}
+
+/* ------------------------------------------------------ bucket-wait spans
+ * One span per call of vtpu_rate_limit that slept, stamped on
+ * CLOCK_REALTIME (the clock of Python's time.time_ns() and of the
+ * profiler's device timestamps), kept in a ring of the last SPAN_RING and
+ * numbered from 0 in the order they end. Only a call that slept writes. */
+
+#define SPAN_RING 16384u
+
+typedef struct {
+    uint64_t start_ns; /* CLOCK_REALTIME ns */
+    uint64_t end_ns;
+    uint64_t cost_us;  /* the cost asked */
+    int32_t dev;
+    uint32_t kinds;    /* VTPU_WAIT_* */
+} vtpu_cuda_span_t;
+
+static struct {
+    pthread_mutex_t mu;
+    uint64_t next; /* the number of the next span */
+    vtpu_cuda_span_t ring[SPAN_RING];
+} g_spans = {.mu = PTHREAD_MUTEX_INITIALIZER};
+
+static void record_span(int dev, uint64_t cost_us, uint64_t slept_ns,
+                        uint32_t kinds) {
+    uint64_t end = clock_ns(CLOCK_REALTIME);
+    pthread_mutex_lock(&g_spans.mu);
+    g_spans.ring[g_spans.next++ % SPAN_RING] = (vtpu_cuda_span_t){
+        end - slept_ns, end, cost_us, dev, kinds};
+    pthread_mutex_unlock(&g_spans.mu);
+}
+
+/* copies the spans numbered from `seq` on that the ring still holds, at
+ * most `max`, oldest first, into `out`; sets *next to the number after
+ * the last one copied (the next span's, when none was, a `seq` past it
+ * too); returns how many it copied, or -1 where the shim holds nothing.
+ * The ring overwrote *next - returned - seq of them, where that is above
+ * 0. */
+int64_t vtpu_cuda_spans(uint64_t seq, vtpu_cuda_span_t *out, uint64_t max,
+                        uint64_t *next) {
+    if (!g_region || !next || (max && !out)) {
+        return -1;
+    }
+    pthread_mutex_lock(&g_spans.mu);
+    uint64_t first = g_spans.next > SPAN_RING ? g_spans.next - SPAN_RING : 0;
+    uint64_t at = seq < first ? first : seq < g_spans.next ? seq
+                                                          : g_spans.next;
+    uint64_t n = 0;
+    for (; at + n < g_spans.next && n < max; n++) {
+        out[n] = g_spans.ring[(at + n) % SPAN_RING];
+    }
+    *next = at + n;
+    pthread_mutex_unlock(&g_spans.mu);
+    return (int64_t)n;
+}
+
 /* ---------------------------------------------------- duty-cycle bucket
  * Every launch is charged to the slice's shared token bucket
  * (vtpu_rate_limit) on the device of the calling thread's context. The
@@ -1043,20 +1158,38 @@ static CUresult h_cuDevicePrimaryCtxRelease_v2(CUdevice dev) {
 static uint64_t g_pending_us[VTPU_MAX_DEVICES]; /* atomics */
 static uint64_t g_mean_us = 0;                  /* under g_mu */
 
-static void charge(int dev, uint64_t cost) {
+/* the bucket's grant of `cost` us on `dev`, counted; returns the ns it
+ * slept */
+static uint64_t rate_limit(int dev, uint64_t cost) {
+    uint32_t kinds;
+    uint64_t slept = vtpu_rate_limit(g_region, dev, cost, &kinds);
+    COUNT(dev, granted_us, cost);
+    if (slept) {
+        COUNT(dev, waits, 1);
+        COUNT(dev, slept_ns, slept);
+        record_span(dev, cost, slept, kinds);
+    }
+    return slept;
+}
+
+/* returns the ns the bucket slept */
+static uint64_t charge(int dev, uint64_t cost) {
+    COUNT(dev, charged_us, cost);
     uint64_t pending = __atomic_add_fetch(&g_pending_us[dev], cost,
                                           __ATOMIC_ACQ_REL);
     if (pending < CHARGE_BATCH_US) {
-        return;
+        return 0;
     }
     uint64_t take = __atomic_exchange_n(&g_pending_us[dev], 0,
                                         __ATOMIC_ACQ_REL);
+    uint64_t slept = 0;
     while (take > 0) { /* a cost above the capacity is never granted whole */
         uint64_t part =
             take < VTPU_DUTY_BUCKET_CAP_US ? take : VTPU_DUTY_BUCKET_CAP_US;
-        vtpu_rate_limit(g_region, dev, part);
+        slept += rate_limit(dev, part);
         take -= part;
     }
+    return slept;
 }
 
 static uint64_t cost_of(const void *key) {
@@ -1082,6 +1215,7 @@ static struct {
     pthread_mutex_t mu;
     CUevent start, end; /* created at the first timed launch */
     const void *key;
+    int dev;   /* the ordinal of the timed launch */
     int busy;  /* a launch holds the pair */
     int armed; /* its end event is recorded: read it when it completes */
 } g_timing = {.mu = PTHREAD_MUTEX_INITIALIZER};
@@ -1099,6 +1233,8 @@ static void timing_poll(void) {
                 CUDA_SUCCESS) {
             uint64_t us = (uint64_t)(ms * 1000.0f);
             ema_update(g_timing.key, us ? us : 1);
+            COUNT(g_timing.dev, timed, 1);
+            COUNT(g_timing.dev, timed_us, us);
         }
         if (q != CUDA_ERROR_NOT_READY) {
             g_timing.armed = g_timing.busy = 0;
@@ -1108,7 +1244,7 @@ static void timing_poll(void) {
 }
 
 /* take the event pair for this launch; returns 1 if it did */
-static int timing_begin(const void *key, CUstream stream) {
+static int timing_begin(const void *key, CUstream stream, int dev) {
     if (!DRV(cuEventRecord) || !g_drv.cuEventQuery ||
         !g_drv.cuEventElapsedTime || !g_drv.cuEventCreate ||
         pthread_mutex_trylock(&g_timing.mu)) {
@@ -1123,6 +1259,7 @@ static int timing_begin(const void *key, CUstream stream) {
         } else if (g_drv.cuEventRecord(g_timing.start, stream) ==
                    CUDA_SUCCESS) {
             g_timing.key = key;
+            g_timing.dev = dev;
             g_timing.busy = took = 1;
         }
     }
@@ -1141,19 +1278,17 @@ static void timing_end(CUstream stream, CUresult launched) {
     pthread_mutex_unlock(&g_timing.mu);
 }
 
-/* before a launch: returns 1 if the launch is to be timed */
-static int launch_begin(const void *key, CUstream stream) {
-    if (!g_region || g_core_policy_off) {
+/* admits a launch on `dev` to the bucket: returns 1 if the launch is to
+ * be timed, and adds the ns the bucket slept to *slept */
+static int launch_admit(const void *key, CUstream stream, int dev,
+                        uint64_t *slept) {
+    if (g_core_policy_off) {
         return 0;
-    }
-    int dev = current_dev();
-    if (dev < 0 || dev >= VTPU_MAX_DEVICES) {
-        dev = 0;
     }
     uint64_t pct = g_region->sm_limit[dev];
     if (pct == 0 || pct >= 100) {
         /* uncapped: only the monitor's priority block can hold it */
-        vtpu_rate_limit(g_region, dev, 0);
+        *slept += rate_limit(dev, 0);
         return 0;
     }
     CUstreamCaptureStatus capture = CU_STREAM_CAPTURE_STATUS_NONE;
@@ -1163,12 +1298,42 @@ static int launch_begin(const void *key, CUstream stream) {
         return 0; /* recorded into a graph: charged when the graph runs */
     }
     if (g_exec_cost_fixed) {
-        charge(dev, g_exec_cost_us);
+        *slept += charge(dev, g_exec_cost_us);
         return 0;
     }
     timing_poll();
-    charge(dev, cost_of(key));
-    return timing_begin(key, stream);
+    *slept += charge(dev, cost_of(key));
+    return timing_begin(key, stream, dev);
+}
+
+/* one launch through a hook, timed on CLOCK_MONOTONIC for the counters:
+ * the hook's own time is launch_begin's and launch_end's less the
+ * bucket's sleeps, apart from the driver's launch call between them */
+typedef struct {
+    int dev, timed;
+    uint64_t start, call, slept; /* ns: the hook's start, the call's */
+} launch_t;
+
+static launch_t launch_begin(const void *key, CUstream stream) {
+    launch_t l = {.start = clock_ns(CLOCK_MONOTONIC), .dev = current_dev()};
+    if (l.dev < 0 || l.dev >= VTPU_MAX_DEVICES) {
+        l.dev = 0;
+    }
+    l.timed = launch_admit(key, stream, l.dev, &l.slept);
+    l.call = clock_ns(CLOCK_MONOTONIC);
+    return l;
+}
+
+static void launch_end(const launch_t *l, CUstream stream, CUresult rc) {
+    uint64_t back = clock_ns(CLOCK_MONOTONIC), end = back;
+    if (l->timed) {
+        timing_end(stream, rc);
+        end = clock_ns(CLOCK_MONOTONIC);
+    }
+    uint64_t own = l->call - l->start + (end - back);
+    COUNT(l->dev, launches, 1);
+    COUNT(l->dev, hook_ns, own > l->slept ? own - l->slept : 0);
+    COUNT(l->dev, driver_ns, back - l->call);
 }
 
 #define LAUNCH_HOOK(name, key, stream, params, ...)                       \
@@ -1177,11 +1342,12 @@ static int launch_begin(const void *key, CUstream stream) {
         if (!real) {                                                      \
             return CUDA_ERROR_NOT_FOUND;                                  \
         }                                                                 \
-        int timed = launch_begin((key), (stream));                        \
-        CUresult rc = real(__VA_ARGS__);                                  \
-        if (timed) {                                                      \
-            timing_end((stream), rc);                                     \
+        if (!g_region) {                                                  \
+            return real(__VA_ARGS__);                                     \
         }                                                                 \
+        launch_t l = launch_begin((key), (stream));                       \
+        CUresult rc = real(__VA_ARGS__);                                  \
+        launch_end(&l, (stream), rc);                                     \
         return rc;                                                        \
     }
 

@@ -24,10 +24,14 @@
 #include <time.h>
 #include <unistd.h>
 
-static uint64_t now_us(void) {
+static uint64_t now_ns(void) {
     struct timespec ts;
     clock_gettime(CLOCK_MONOTONIC, &ts);
-    return (uint64_t)ts.tv_sec * 1000000ull + (uint64_t)ts.tv_nsec / 1000ull;
+    return (uint64_t)ts.tv_sec * 1000000000ull + (uint64_t)ts.tv_nsec;
+}
+
+static uint64_t now_us(void) {
+    return now_ns() / 1000ull;
 }
 
 vtpu_shared_region_t *vtpu_shm_open(const char *path) {
@@ -252,9 +256,15 @@ int64_t vtpu_rate_tokens(const vtpu_shared_region_t *r, int dev) {
     return r->duty_tokens_us[dev];
 }
 
-void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us) {
+uint64_t vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us,
+                         uint32_t *kinds) {
+    uint32_t waited = 0;
+    uint64_t asleep = 0; /* CLOCK_MONOTONIC ns at the first sleep */
+    if (kinds) {
+        *kinds = 0;
+    }
     if (dev < 0 || dev >= VTPU_MAX_DEVICES) {
-        return;
+        return 0;
     }
     for (;;) {
         /* monitor hard-block (priority arbitration) — checked before the
@@ -263,6 +273,10 @@ void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us) {
          * higher-priority task (reference feedback.go:197-255 arbitrates
          * regardless of the SM limit) */
         if (r->recent_kernel < 0 && r->utilization_switch > 0) {
+            if (!waited) {
+                asleep = now_ns();
+            }
+            waited |= VTPU_WAIT_BLOCK;
             struct timespec ts = {0, 2000000}; /* 2ms */
             nanosleep(&ts, NULL);
             continue;
@@ -270,7 +284,7 @@ void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us) {
         uint64_t pct = r->sm_limit[dev];
         if (pct == 0 || pct >= 100) {
             r->last_kernel_time = (int64_t)time(NULL);
-            return; /* no duty-cycle cap (hard-block already honored) */
+            break; /* no duty-cycle cap (hard-block already honored) */
         }
         int64_t tokens;
         vtpu_shm_lock(r);
@@ -296,8 +310,12 @@ void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us) {
         vtpu_shm_unlock(r);
         if (granted) {
             r->last_kernel_time = (int64_t)time(NULL);
-            return;
+            break;
         }
+        if (!waited) {
+            asleep = now_ns();
+        }
+        waited |= VTPU_WAIT_BUCKET;
         /* sleep until enough tokens accrue */
         uint64_t need = (uint64_t)((int64_t)cost_us - tokens);
         uint64_t wait = need * 100ull / pct;
@@ -308,4 +326,8 @@ void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us) {
                               (long)((wait % 1000000ull) * 1000ull)};
         nanosleep(&ts, NULL);
     }
+    if (kinds) {
+        *kinds = waited;
+    }
+    return waited ? now_ns() - asleep : 0;
 }

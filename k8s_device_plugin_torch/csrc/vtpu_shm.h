@@ -113,8 +113,14 @@ uint64_t vtpu_device_used(const vtpu_shared_region_t *r, int dev);
 /* ---- duty-cycle token bucket (shared across all region sharers) ----
  * Called before each executable launch; sleeps until the launch may run
  * under sm_limit[dev] percent duty cycle and the monitor's feedback cells.
- * cost_us is the estimated device-time of the launch. */
-void vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us);
+ * cost_us is the estimated device-time of the launch. Returns the ns it
+ * slept, from its first sleep to the grant (0 when it granted at once,
+ * which reads no clock for it), and sets *kinds (when not NULL) to the
+ * VTPU_WAIT_* bits of what it slept for. (lib/tpu's returns nothing.) */
+#define VTPU_WAIT_BUCKET 1u /* too few tokens in the bucket */
+#define VTPU_WAIT_BLOCK  2u /* the monitor's priority block */
+uint64_t vtpu_rate_limit(vtpu_shared_region_t *r, int dev, uint64_t cost_us,
+                         uint32_t *kinds);
 
 /* the bucket's capacity (us of device time): its burst, and the largest
  * cost one vtpu_rate_limit call can ever be granted */

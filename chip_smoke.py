@@ -115,6 +115,11 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 #: ai-benchmark case 5.1: batch 100, 300 features, 1024 hidden
 LSTM_CASE = (100, 300, 1024)
+#: ResNet-V2-50's stages at case 1.1 (batch 50 @ 346: 87 x 87 after the
+#: root and the pool), (width, side): ``bn_relu`` runs at [50, width, side,
+#: side] (bn1, bn2; the stem's preact at stage 1's), ``add_bn_relu`` at
+#: four times the width. Stage 1's are each pass's largest input.
+RESNET_STAGES = ((64, 87), (128, 44), (256, 22), (512, 11))
 #: steps of each train path through the runner (after its 2 warm-up calls)
 TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5,
                "moe-lm": 3, "vgg16": 5, "deeplab": 3}
@@ -402,6 +407,89 @@ def phase_lstm_kernel() -> dict:
          share_of_bound=bound_s * 1e3 / ms, bound_ms=bound_s * 1e3,
          bytes=nbytes, flops=flops, timing=timing, wall_ms=wall_ms)
     return result
+
+
+def _bf16_ulps(got, want) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors (-0
+    and +0 are one value)."""
+    import torch
+
+    def ordered(t):
+        bits = t.view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def phase_bn_relu_kernel() -> dict:
+    """Both passes of ``csrc/bn_relu.cu`` against their plain versions
+    (ATen's BatchNorm, ReLU and add) at each stage's shapes of
+    :data:`RESNET_STAGES`, and the add without its sum kept: the largest
+    distance in bf16 steps and the share of elements that differ, the
+    time beside the plain version's and the bound by bytes, and the bytes
+    a second moved. Returns the ``kernels`` entries of both at stage 1's
+    shapes, their largest inputs on the path."""
+    import torch
+    from k8s_device_plugin_torch.workloads import bn_relu, resnet
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def act(c, side):
+        return torch.randn((50, c, side, side), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def norm(c):
+        bn = resnet.BatchNorm(c)
+        with torch.no_grad():
+            for t, lo, hi in ((bn.running_mean, -0.3, 0.3),
+                              (bn.running_var, 0.5, 1.5),
+                              (bn.weight, 0.8, 1.2), (bn.bias, -0.3, 0.3)):
+                t.uniform_(lo, hi)
+        return bn.to(dev).eval()
+
+    results = {}
+    for stage, (width, side) in enumerate(RESNET_STAGES, 1):
+        x, bn = act(width, side), norm(width)
+        a, b, bn4 = act(4 * width, side), act(4 * width, side), norm(4 * width)
+        cases = {
+            "bn_relu": (x, lambda: (None, bn_relu.bn_relu(x, bn)),
+                        lambda: (None, bn_relu.bn_relu_reference(x, bn)), 4),
+            "add_bn_relu": (
+                a, lambda: bn_relu.add_bn_relu(a, b, bn4),
+                lambda: bn_relu.add_bn_relu_reference(a, b, bn4), 8),
+            "add_bn_relu_no_sum": (
+                a, lambda: bn_relu.add_bn_relu(a, b, bn4, keep_sum=False),
+                lambda: bn_relu.add_bn_relu_reference(a, b, bn4, False), 6),
+        }
+        for name, (t, kernel, plain, per_elem) in cases.items():
+            got, want = kernel(), plain()
+            ulps = max(_bf16_ulps(u, v) for u, v in zip(got, want)
+                       if u is not None)
+            differ = sum(int((u != v).sum()) for u, v in zip(got, want)
+                         if u is not None) / t.numel()
+            if ulps > 1:
+                raise AssertionError(f"{name} at stage {stage}: {ulps} bf16 "
+                                     f"steps from plain")
+            del got, want
+            ms, timing = device_ms(kernel, 50)
+            plain_ms, _ = device_ms(plain, 50)
+            nbytes = per_elem * t.numel()
+            line = {"max_ulps": ulps, "differ_share": differ, "ms": ms,
+                    "kernel_ms": ms, "timing": timing, "plain_ms": plain_ms,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "bytes": nbytes,
+                    "tb_per_s": nbytes / ms / 1e9}
+            emit(f"kernel_{name}", stage=stage, shape=list(t.shape),
+                 dtype="bfloat16", **line,
+                 share_of_bound=line["bound_ms"] / ms)
+            if stage == 1 and name in ("bn_relu", "add_bn_relu"):
+                results[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "k8s_device_plugin_torch/csrc/bn_relu.cu",
+                    "replaces": "none: ATen's BatchNorm, ReLU and add passes",
+                    "shape": list(t.shape), **line}
+        del x, a, b
+    return results
 
 
 def _flash_args(batch, tq, tk, heads, dim, dtype, seed, identity):
@@ -1242,10 +1330,12 @@ def _runner_line(argv) -> dict:
 def _counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` its launches count."""
     from k8s_device_plugin_torch.monitor import dutyprobe
-    from k8s_device_plugin_torch.workloads import flash, pallas_ops
+    from k8s_device_plugin_torch.workloads import bn_relu, flash, pallas_ops
     return {"probe_chain": dutyprobe.probe_chain,
             "lstm_cell": pallas_ops.lstm_cell,
-            "flash_absorb": flash.flash_absorb}
+            "flash_absorb": flash.flash_absorb,
+            "bn_relu": bn_relu.bn_relu,
+            "add_bn_relu": bn_relu.add_bn_relu}
 
 
 def _counting(by_path: dict):
@@ -1422,6 +1512,10 @@ def phase_main_path() -> dict:
     per_call.update({(path, name): (0, 0) for path in (
         "moe_lm_decode", "vgg16_infer", "vgg16_train", "deeplab_infer",
         "deeplab_train") for name in counters})
+    # the ResNets train on the modules' own BatchNorm, ReLU and add
+    per_call.update({(path, name): (0, 0) for path in (
+        "resnet50_train", "resnet152_train")
+        for name in ("bn_relu", "add_bn_relu")})
     for (path, name), (n, steps) in per_call.items():
         calls = steps + 2
         if by_path[path][name] != n * calls:
@@ -1436,7 +1530,9 @@ def _check_own_paths(by_path: dict) -> None:
            "lstm_cell": ["lstm_case_5_1", "lstm_train"],
            "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
                             "moe_lm_train", "multichip_ring_flash",
-                            "multichip_moe_lm_ring_flash"]}
+                            "multichip_moe_lm_ring_flash"],
+           "bn_relu": ["multichip_resnet50_infer"],
+           "add_bn_relu": ["multichip_resnet50_infer"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if path in by_path and by_path[path][name] <= 0]
     if missing:
@@ -1520,6 +1616,16 @@ def phase_multichip_card() -> dict:
              ms=flash_ms, plain_ms=plain_ms)
     emit("multichip_card", by_path=by_path,
          seconds=time.perf_counter() - t0)
+    # a ResNet-V2-50 eval forward: 33 BatchNorm + ReLU passes (the stem's
+    # preact, bn1 and bn2 of 16 blocks) and 16 adds (15 into the next
+    # preact, one into final_bn); training takes the modules' own ops.
+    # The runner makes 2 warm-up calls before its 3 steps.
+    for path, want in (("multichip_resnet50_infer", (33, 16)),
+                       ("multichip_resnet50_train", (0, 0))):
+        got = (by_path[path]["bn_relu"], by_path[path]["add_bn_relu"])
+        if got != (want[0] * 5, want[1] * 5):
+            raise AssertionError(f"{path}: {got} bn_relu, add_bn_relu "
+                                 f"launches in 5 calls, not {want} each")
     return by_path
 
 
@@ -2433,7 +2539,8 @@ def main() -> int:
     phase_compile_cache()
     kernels = {"probe_chain": phase_probe_kernel(),
                "lstm_cell": phase_lstm_kernel(),
-               "flash_absorb": phase_flash_kernel()}
+               "flash_absorb": phase_flash_kernel(),
+               **phase_bn_relu_kernel()}
     attention = phase_flash_grad()
     phase_lstm_grad()
     phase_enforcement_card(card)

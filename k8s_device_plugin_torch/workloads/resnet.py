@@ -21,6 +21,12 @@ so a stride-2 window on an even input pads 0 before and 1 after, where
 PyTorch's symmetric ``padding=1`` would shift the output by one pixel.
 :func:`_same_pad` computes Flax's split; an asymmetric split goes through
 ``F.pad`` (with -inf for the max-pool).
+
+:meth:`ResNetV2.forward` carries (sum, pre-activation) from block to
+block, so that each BatchNorm goes with its ReLU, and each residual add
+with the next BatchNorm and ReLU (``bn_relu.py``). In eval on bf16 CUDA
+activations each of those is one pass of ``csrc/bn_relu.cu``; in training,
+and on any other dtype or device, they are the modules' own ops.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from . import bn_relu as fused
 
 DEPTHS = {
     50: (3, 4, 6, 3),
@@ -151,11 +159,20 @@ class BottleneckV2(nn.Module):
                             dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        preact = F.relu(self.preact_bn(x))
+        shortcut, residual = self.branches(
+            x, fused.bn_relu_reference(x, self.preact_bn),
+            fused.bn_relu_reference)
+        return shortcut + residual
+
+    def branches(self, x, preact, bn_relu):
+        """(shortcut, residual) from the block's input ``x`` and its
+        pre-activation ``relu(preact_bn(x))``, which the caller made, with
+        ``bn_relu(y, bn)`` for bn1 and bn2 and their ReLUs: the block's
+        output is their sum."""
         shortcut = x if self.proj is None else self.proj(preact)
-        y = F.relu(self.bn1(self.conv1(preact)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        return shortcut + self.conv3(y)
+        y = bn_relu(self.conv1(preact), self.bn1)
+        y = bn_relu(self.conv2(y), self.bn2)
+        return shortcut, self.conv3(y)
 
 
 class ResNetV2(nn.Module):
@@ -192,10 +209,26 @@ class ResNetV2(nn.Module):
         x = self.conv_root(x)
         x, pad = _pad_same(x, 3, 2, value=float("-inf"))
         x = F.max_pool2d(x, 3, stride=2, padding=pad)
-        for name in self.block_names:
-            x = getattr(self, name)(x)
-        x = F.relu(self.final_bn(x))
-        x = x.mean(dim=(2, 3))
+        # a dispatch on the input, not a fallback: the kernels are bf16
+        # CUDA only and have no backward, and they raise on a layout or a
+        # width they do not take
+        kernel = (not self.training and x.is_cuda
+                  and x.dtype == torch.bfloat16)
+        bn_relu = fused.bn_relu if kernel else fused.bn_relu_reference
+        add_bn_relu = (fused.add_bn_relu if kernel
+                       else fused.add_bn_relu_reference)
+        # block k's add goes with block k+1's preact BatchNorm and ReLU
+        # (the last with final_bn's), and its sum is kept only where block
+        # k+1's shortcut is the identity
+        blocks = [getattr(self, name) for name in self.block_names]
+        preact = bn_relu(x, blocks[0].preact_bn)
+        for block, after in zip(blocks, blocks[1:] + [None]):
+            shortcut, residual = block.branches(x, preact, bn_relu)
+            x, preact = add_bn_relu(
+                shortcut, residual,
+                self.final_bn if after is None else after.preact_bn,
+                keep_sum=after is not None and after.proj is None)
+        x = preact.mean(dim=(2, 3))
         return self.head(x.float())
 
 

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from k8s_device_plugin_torch.monitor import dutyprobe
-from k8s_device_plugin_torch.workloads import flash, harness, pallas_ops
+from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
+                                               pallas_ops, resnet)
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
@@ -404,3 +405,127 @@ def test_vgg16_dropout_step_on_the_card_matches_the_cpu(cuda):
         scale = w.grad.abs().max()
         assert scale > 0, name
         assert (p.grad.cpu() - w.grad).abs().max() <= 1e-4 * scale, name
+
+
+#: ResNet-V2-50's activations at ai-benchmark case 1.1 (batch 50 @ 346),
+#: a stage's (width, side): bn1 and bn2 normalize the width, the adds and
+#: the next preact BatchNorm four times it
+RESNET_STAGES = [(64, 87), (128, 44), (256, 22), (512, 11)]
+
+
+def _card_bn(channels, device, seed):
+    """An eval BatchNorm on ``device`` with drawn statistics and affine."""
+    g = torch.Generator().manual_seed(seed)
+    bn = resnet.BatchNorm(channels)
+    with torch.no_grad():
+        bn.running_mean.uniform_(-0.3, 0.3, generator=g)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+        bn.weight.uniform_(0.8, 1.2, generator=g)
+        bn.bias.uniform_(-0.3, 0.3, generator=g)
+    return bn.to(device).eval()
+
+
+def _card_activation(shape, device, seed):
+    """A channels-last bf16 activation [N, C, H, W] on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def _bf16_ulps(got, want) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors (-0 and
+    +0 are one value)."""
+    def ordered(t):
+        bits = t.view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    assert got.dtype == want.dtype == torch.bfloat16
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+@pytest.mark.parametrize("width,side", RESNET_STAGES)
+def test_bn_relu_kernel_matches_plain_at_the_stage_shapes(cuda, width, side):
+    x = _card_activation((50, width, side, side), cuda, seed=width)
+    bn = _card_bn(width, cuda, seed=width)
+    before = bn_relu.bn_relu.launches
+    got = bn_relu.bn_relu(x, bn)
+    torch.cuda.synchronize()
+    assert bn_relu.bn_relu.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _bf16_ulps(got, bn_relu.bn_relu_reference(x, bn)) <= 1
+
+
+@pytest.mark.parametrize("keep_sum", [True, False])
+@pytest.mark.parametrize("width,side", RESNET_STAGES)
+def test_add_bn_relu_kernel_matches_plain_at_the_stage_shapes(
+        cuda, width, side, keep_sum):
+    shape = (50, 4 * width, side, side)
+    a = _card_activation(shape, cuda, seed=1)
+    b = _card_activation(shape, cuda, seed=2)
+    bn = _card_bn(4 * width, cuda, seed=width)
+    before = bn_relu.add_bn_relu.launches
+    s, y = bn_relu.add_bn_relu(a, b, bn, keep_sum=keep_sum)
+    torch.cuda.synchronize()
+    assert bn_relu.add_bn_relu.launches == before + 1
+    want_s, want_y = bn_relu.add_bn_relu_reference(a, b, bn)
+    if keep_sum:
+        assert s.is_contiguous(memory_format=torch.channels_last)
+        assert _bf16_ulps(s, want_s) <= 1
+    else:
+        assert s is None
+    assert _bf16_ulps(y, want_y) <= 1
+
+
+def test_bn_relu_kernels_refuse_what_they_do_not_take(cuda):
+    bn = _card_bn(16, cuda, seed=0)
+    x = _card_activation((2, 16, 5, 3), cuda, seed=0)
+    odd = _card_activation((2, 12, 5, 3), cuda, seed=0)
+    cases = [(x.contiguous(), bn, "channels-last"),
+             (odd, _card_bn(12, cuda, seed=0), "12 channels"),
+             (x.float(), bn, "only bf16"), (x.half(), bn, "only bf16")]
+    for t, norm, match in cases:
+        with pytest.raises(ValueError, match=match):
+            bn_relu.bn_relu(t, norm)
+        with pytest.raises(ValueError, match=match):
+            bn_relu.add_bn_relu(t, t, norm)
+
+
+def _resnet_by_modules(model, x):
+    """ResNetV2's eval logits with each block's own ``forward``: BatchNorm,
+    ReLU and the add as ATen's separate passes."""
+    import torch.nn.functional as F
+    x = x.to(model.dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    x = model.conv_root(x)
+    x, pad = resnet._pad_same(x, 3, 2, value=float("-inf"))
+    x = F.max_pool2d(x, 3, stride=2, padding=pad)
+    for name in model.block_names:
+        x = getattr(model, name)(x)
+    x = F.relu(model.final_bn(x)).mean(dim=(2, 3))
+    return model.head(x.float())
+
+
+# per forward: 33 BatchNorm + ReLU passes (the stem's preact, bn1 and bn2
+# of 16 blocks) and 16 add passes (15 into the next preact, one into
+# final_bn); fp32 takes the plain versions. The logits' bound is
+# tests/test_torch_resnet.py's TOLERANCE (that file imports JAX).
+@pytest.mark.parametrize("dtype,launches,tol", [
+    (torch.bfloat16, (33, 16), 5e-2), (torch.float32, (0, 0), 1e-4)])
+def test_resnet50_eval_fused_matches_the_modules(cuda, dtype, launches, tol):
+    model = harness.init_model(resnet.resnet50(dtype=dtype), 0, "cpu")
+    for k, m in enumerate(model.modules()):
+        if isinstance(m, resnet.BatchNorm):
+            m.load_state_dict(_card_bn(m.num_features, "cpu", k).state_dict())
+    model = model.to(cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (50, 346, 346, 3)).astype(np.float32)).to(cuda)
+    before = (bn_relu.bn_relu.launches, bn_relu.add_bn_relu.launches)
+    got = harness.make_infer_fn(model)(x)
+    torch.cuda.synchronize()
+    assert (bn_relu.bn_relu.launches - before[0],
+            bn_relu.add_bn_relu.launches - before[1]) == launches
+    with torch.inference_mode():
+        want = _resnet_by_modules(model, x)
+    scale = want.abs().max().item()
+    assert scale > 0.1
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)

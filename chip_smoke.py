@@ -82,7 +82,14 @@ Phases, one JSON line each; any failure exits non-zero:
 13. the LM's forward, decode step and train step, a train step of
    ResNet-50 (case 1.2) and of the LSTM (case 5.2), and the MoE LM's
    forward and train step, under torch.profiler: device time by kernel
-   family and the device's idle share;
+   family and the device's idle share; then LFM2-8B-A1B at its published
+   widths (``lfm2_moe``), as the benchmark's tenant builds and serves it
+   (4 prompts of 4096 embeddings): K3 at that shape against the plain
+   absorb, 18 short convs, 22 grouped expert applies and 6 K3 absorbs a
+   forward (else it fails), K3 on its ``wgmma`` route, the forward's
+   profile and most loaded expert, and one
+   expert layer's grouped products against the plain ones on the CPU on
+   the same routed tokens;
 14. correctness: the models on the card against the same weights on the
    CPU at small inputs (the MoE LM with its count of routing decisions
    that differ), greedy decoding of the LM and the MoE LM on the card
@@ -1938,6 +1945,8 @@ def phase_checkpoint_card(device: str = "cuda") -> None:
 #: kernel families by name, for a profile's breakdown (first match wins)
 FAMILIES = (("flash_absorb (K3)", ("flash",)),
             ("lstm_cell (K2)", ("lstm",)),
+            ("grouped expert products", ("groupproblemshape",
+                                         "grouped_gemm")),
             ("matmul (cuBLAS, cuDNN)", ("gemm", "xmma", "cutlass", "sm90_",
                                         "wgmma", "conv", "cudnn")),
             ("copy", ("copy",)),
@@ -2128,6 +2137,170 @@ def phase_moe_profile() -> None:
     emit("moe_lm_train_profile", tokens_per_step=train_batch * seq,
          attention_backward_ms=recompute_ms,
          attention_backward_share=recompute_ms / prof["device_ms"], **prof)
+
+
+#: LFM2-8B-A1B's kernels a forward: short convs, grouped expert applies
+#: (two ``_grouped_mm`` each), K3 absorbs
+LFM2_COUNTS = {"short_conv": 18, "expert_apply": 22, "flash_absorb": 6}
+#: one expert layer's grouped bf16 products against fp32 ones, over the
+#: largest output: bf16 rounds the first product, the gated SwiGLU and each
+#: expert's output once (0.0057 on the H100); a pair sent to the wrong
+#: expert reads near 1
+LFM2_GROUPED_BOUND = 2e-2
+#: a bf16 forward against the plain fp32 reference on the program's own
+#: expert choices, over the largest logit (:func:`lfm2_routed_alike`): the
+#: program read 0.030-0.041 and the float8 control 0.367-0.481 on the
+#: H100 (12 inputs of 4 x 4096, 3 seeds)
+LFM2_ROUTED_BOUND = 0.1
+
+
+def lfm2_routed_alike(model, cfg, x) -> tuple[float, float]:
+    """(program, control): the last logits of ``model`` on prompts ``x``,
+    and the reference computed in float8, each against the plain fp32
+    reference (``vgpu_bench/reference/lfm2_moe.py``) on the experts the
+    program chose in each sparse layer, over the largest reference logit.
+    On its own routing the reference breaks some near-ties of the 4th and
+    5th expert the other way, which moves the last logits as far as float8
+    does; on the program's routing what is left is the products'
+    rounding."""
+    import torch
+    from k8s_device_plugin_torch.workloads import moe
+    from vgpu_bench.reference import lfm2_moe as plain
+    taken, route = [], moe.route_sigmoid_topk
+
+    def keep(*args):
+        sel, gates = route(*args)
+        taken.append(sel)
+        return sel, gates
+    moe.route_sigmoid_topk = keep
+    try:
+        with torch.inference_mode():
+            logits = model(x)
+    finally:
+        moe.route_sigmoid_topk = route
+    w = dict(model.state_dict())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = plain.forward(w, x, cfg, "fp32", routing=taken)
+            scale = want.abs().max().item()
+            control = plain.forward(w, x, cfg, "fp8", routing=taken)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return (max_abs_err(logits, want) / scale,
+            max_abs_err(control, want) / scale)
+
+
+def phase_lfm2_moe() -> None:
+    """LFM2-8B-A1B at its published widths, built and served as the
+    benchmark's cell does (``vgpu_bench.tenant.build`` on the seed's
+    weights, the first input of its pool, 4 prompts of 4096 embeddings):
+    first K3 at the cell's shape, [4, 4096, 32, 64] bf16 with K and V
+    expanded from 8 heads as ``lfm2.attention`` expands them (kind 1,
+    identity state), against the plain absorb on m, l, o and the finalized
+    output (tolerance 2e-2, as the LM case); then the counters of one
+    forward (:data:`LFM2_COUNTS`, else it fails), K3's kernels all on the
+    ``wgmma`` route (``wg::flash_kernel`` in the trace), the profile of a
+    forward (3 timed), the most loaded expert, and one layer's grouped
+    apply on the card against the loop of plain products on the CPU on the
+    same routed tokens, and the whole forward against the plain fp32
+    reference on the program's routing (:func:`lfm2_routed_alike`), where
+    the float8 control must miss the bound that the program meets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from k8s_device_plugin_torch.workloads import attention, flash, lfm2, moe
+    from vgpu_bench import tenant, weights
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "vgpu_bench", "configs",
+                           "lfm2-8b-a1b.prefill4k.json")) as f:
+        cfg = json.load(f)
+    batch, seq, _ = cfg["input_shape"]
+    heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    dim = cfg["hidden_size"] // heads
+    bf16 = torch.bfloat16
+    q, k, v, m, l, o = _flash_args(batch, seq, seq, heads, dim, bf16, 17,
+                                   True)
+    k, v = (attention.expand_kv(t[:, :, :kv].contiguous(), heads)
+            for t in (k, v))
+    route = flash.absorb_route(q.dtype, dim, seq)
+    got = flash.flash_absorb(q, k, v, 1, m, l, o)
+    # one prompt at a time: the plain absorb's scores are [H, T, T] fp32
+    want = [torch.cat(parts) for parts in zip(*(
+        flash._absorb_reference(*(t[b:b + 1] for t in (q, k, v)), 1,
+                                *(t[b:b + 1] for t in (m, l, o)),
+                                dim ** -0.5) for b in range(batch)))]
+    k3 = {name: check_close(f"flash_absorb LFM2 {name}", g, w, 2e-2)
+          for name, g, w in zip("mlo", got, want)}
+    k3["finalized"] = check_close(
+        "flash_absorb LFM2 finalized", flash.flash_finalize(*got, bf16),
+        flash.flash_finalize(*want, bf16), 2e-2)
+    emit("lfm2_moe_flash_absorb", route=route, shape=list(q.shape),
+         max_abs_err=k3)
+    del q, k, v, m, l, o, got, want
+    torch.cuda.empty_cache()
+
+    model = tenant.build(cfg, 0, "cuda")
+    x = weights.inputs(cfg, 0, 0, 0, "cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+    counters = {"short_conv": lfm2.short_conv,
+                "expert_apply": moe.expert_apply,
+                "flash_absorb": flash.flash_absorb}
+    forward()
+    for c in counters.values():
+        c.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits = forward()
+        torch.cuda.synchronize()
+    counts = {name: c.launches for name, c in counters.items()}
+    if counts != LFM2_COUNTS:
+        raise AssertionError(f"lfm2_moe: launches {counts}, expected "
+                             f"{LFM2_COUNTS}")
+    absorbs = [e.key for e in prof.key_averages()
+               if "flash_kernel" in e.key]
+    if not absorbs or any("wg::" not in k for k in absorbs):
+        raise AssertionError(f"lfm2_moe: K3 off the wgmma route: {absorbs}")
+    if tuple(logits.shape) != (batch, model.cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"lfm2_moe: logits {tuple(logits.shape)}")
+    largest = moe.largest_expert_load()
+    emit("lfm2_moe_profile", tokens_per_call=batch * seq, launches=counts,
+         largest_expert_load=largest,
+         mean_expert_load=batch * seq * model.cfg.top_k
+         / model.cfg.experts, peak_bytes=torch.cuda.max_memory_allocated(),
+         **_profile(forward, 3, top=12))
+    # the grouped products against the plain ones, on the same routing
+    lyr = model.layers[5].moe
+    h = torch.randn(seq, model.cfg.dim, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2)
+                    ).to(torch.bfloat16)
+    sel, gates = moe.route_sigmoid_topk(h, lyr.router, lyr.expert_bias,
+                                        model.cfg.top_k)
+    with torch.inference_mode():
+        got = moe.expert_apply(h, sel, gates, lyr.w13, lyr.w2)
+    want = moe.expert_apply(h.cpu().float(), sel.cpu(), gates.cpu(),
+                            lyr.w13.cpu().float(), lyr.w2.cpu().float())
+    # bf16 rounds h13, the gated SwiGLU and each expert's output once
+    err = err_of_largest("lfm2_moe grouped apply", got.cpu(), want,
+                         LFM2_GROUPED_BOUND)
+    emit("lfm2_moe_grouped_apply", err_of_largest=err,
+         bound=LFM2_GROUPED_BOUND)
+    del lyr, h, sel, gates, got, want
+    program, control = lfm2_routed_alike(model, cfg, x)
+    if not program <= LFM2_ROUTED_BOUND < control:
+        raise AssertionError(
+            f"lfm2_moe on the program's routing: program {program}, "
+            f"float8 control {control}, bound {LFM2_ROUTED_BOUND}")
+    emit("lfm2_moe_routed_alike", program=program, control=control,
+         bound=LFM2_ROUTED_BOUND)
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_model_train_profiles() -> None:
@@ -2556,6 +2729,7 @@ def main() -> int:
     phase_lm_train_profile(attention)
     phase_model_train_profiles()
     phase_moe_profile()
+    phase_lfm2_moe()
     phase_correctness()
     phase_train_correctness()
     for name, k in kernels.items():

@@ -26,6 +26,15 @@ is whole on every rank), and each rank back-propagates its share of the
 loss (``collectives.reduce_loss``): ``harness.sum_replica_grads`` then sums
 the gate's gradient over the world and the experts' over the axes they are
 not split on.
+
+The drop-free top-k sigmoid layer (:class:`SigmoidMoE`, LFM2-MoE's
+experts; no JAX counterpart) routes every token to its k experts
+(:func:`route_sigmoid_topk`) and applies them with no capacity
+(:func:`expert_apply`): the token-expert pairs sorted by expert, each
+expert's SwiGLU on exactly its pairs, the gates folded into the second
+product's input, and each token's k results summed. On bf16 CUDA tensors
+each product is one ``torch._grouped_mm`` over all experts; elsewhere a
+loop of plain products, one expert at a time.
 """
 
 from __future__ import annotations
@@ -335,3 +344,105 @@ def moe_lm_loss(params: MoELM, tokens, mesh=None,
     share = cross_entropy(logits, seq_shard(targets, mesh)) \
         * (logits.shape[0] * logits.shape[1] / targets.numel())
     return collectives.reduce_loss(share) + aux_weight * aux
+
+
+# ------------------------------------- drop-free top-k sigmoid experts
+
+class SigmoidMoE(nn.Module):
+    """A drop-free top-k expert layer's weights: the ``router`` [D, E], the
+    selection-only ``expert_bias`` [E] (fp32), and the experts' SwiGLU
+    stacks ``w13`` [E, D, 2F] (W1 and W3 side by side) and ``w2`` [E, F,
+    D]. The forward takes tokens [..., D] to the layer's output (without
+    the residual) in the experts' dtype: the router reads the tokens as
+    they come (LFM2 hands it the fp32 norm), the experts in their dtype."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int, top_k: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.top_k = top_k
+        self.router = nn.Parameter(torch.empty(dim, n_experts, dtype=dtype))
+        self.expert_bias = nn.Parameter(torch.empty(n_experts,
+                                                    dtype=torch.float32))
+        self.w13 = nn.Parameter(torch.empty(n_experts, dim, 2 * hidden,
+                                            dtype=dtype))
+        self.w2 = nn.Parameter(torch.empty(n_experts, hidden, dim,
+                                           dtype=dtype))
+
+    def forward(self, h):
+        flat = h.reshape(-1, h.shape[-1])
+        sel, gates = route_sigmoid_topk(flat, self.router, self.expert_bias,
+                                        self.top_k)
+        return expert_apply(flat.to(self.w13.dtype), sel, gates, self.w13,
+                            self.w2).view(h.shape)
+
+
+#: added to the selected scores' sum before the gates divide by it
+GATE_EPS = 1e-6
+#: the gates' factor, LFM2-8B-A1B's published ``routed_scaling_factor``
+ROUTED_SCALING = 1.0
+
+
+def route_sigmoid_topk(h, router, expert_bias, top_k: int):
+    """(selected experts [N, k] long, gates [N, k] fp32) of tokens h [N,
+    D]: scores s = sigmoid(h W_router) in fp32 (the product too), the k
+    experts of largest s + ``expert_bias`` (the bias selects and never
+    weighs), and g_e = s_e / (sum of the selected s + 1e-6) x
+    :data:`ROUTED_SCALING`."""
+    s = torch.sigmoid(h.float() @ router.float())
+    _, sel = torch.topk(s + expert_bias.float(), top_k, dim=-1)
+    g = s.gather(-1, sel)
+    return sel, g / (g.sum(-1, keepdim=True) + GATE_EPS) * ROUTED_SCALING
+
+
+def expert_apply(h, sel, gates, w13, w2):
+    """sum over j of gates[n, j] SwiGLU_{sel[n, j]}(h[n]) for tokens h [N,
+    D], in h's dtype: every pair computed, none dropped, and no expert
+    computes a token not routed to it. The pairs are sorted by expert
+    (stably, so in token order within one); on bf16 CUDA tensors each of
+    the two products is one ``torch._grouped_mm`` over the sorted pairs
+    (counted in ``expert_apply.launches``), elsewhere a loop of plain
+    products over the experts. The per-expert pair counts of the last
+    call stay on the device as ``expert_apply.last_counts``
+    (:func:`largest_expert_load` reads them)."""
+    n, k = sel.shape
+    n_experts, hidden = w2.shape[0], w2.shape[1]
+    experts, order = torch.sort(sel.reshape(-1), stable=True)
+    # each expert's end among the sorted pairs: found on the device, so
+    # the host never waits for the routing
+    ends = torch.searchsorted(experts, torch.arange(
+        1, n_experts + 1, device=sel.device), out_int32=True)
+    xs = h.index_select(0, order // k)
+    g = gates.reshape(-1)[order].to(h.dtype)[:, None]
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        h13 = torch._grouped_mm(xs, w13, offs=ends)
+        a = F.silu(h13[:, :hidden]).mul_(h13[:, hidden:]).mul_(g)
+        ys = torch._grouped_mm(a, w2, offs=ends)
+        expert_apply.launches += 1
+    else:
+        ys = torch.empty_like(xs)
+        start = 0
+        for e, end in enumerate(ends.tolist()):
+            if end > start:
+                rows = slice(start, end)
+                h13 = xs[rows] @ w13[e]
+                a = F.silu(h13[:, :hidden]) * h13[:, hidden:] * g[rows]
+                ys[rows] = a @ w2[e]
+                start = end
+    expert_apply.last_counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    # back to token order: pair p was sorted to row place[p]
+    place = torch.empty_like(order)
+    place[order] = torch.arange(len(order), device=order.device)
+    return ys.index_select(0, place).view(n, k, -1).sum(dim=1)
+
+
+#: grouped applies since the last reset (two ``_grouped_mm`` launches
+#: each; the loop does not count)
+expert_apply.launches = 0
+expert_apply.last_counts = None
+
+
+def largest_expert_load() -> int | None:
+    """The most pairs any one expert took in the last :func:`expert_apply`
+    (its load imbalance; reading it waits for the device)."""
+    counts = expert_apply.last_counts
+    return None if counts is None else int(counts.max())

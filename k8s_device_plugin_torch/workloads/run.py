@@ -9,7 +9,11 @@ Every model and mode of the JAX runner is ported: ``resnet50``,
 ``--mode train``, and the long-context ``lm`` and ``moe-lm`` in ``--mode
 infer`` and ``--mode train`` (on one card their attention runs through the
 flash-absorb kernel, in training with the recompute backward) and ``--mode
-decode`` (KV-cache serving). Under ``VTPU_COMPILE_CACHE_DIR`` the kernels
+decode`` (KV-cache serving). ``lfm2_moe``, LFM2-8B-A1B at its published
+widths (``lfm2.py``; no JAX counterpart), is built here
+(:func:`build_model`) for the benchmark's tenant, which fills it with its
+seeded weights (``vgpu_bench.tenant.build``; ``chip_smoke.py`` serves it
+so), and is no runner case. Under ``VTPU_COMPILE_CACHE_DIR`` the kernels
 build into the compile cache and the run vouches for
 ``VTPU_COMPILE_CACHE_KEY`` after its first call
 (``harness.setup_compile_cache``).
@@ -83,7 +87,9 @@ def build_model(name: str, dtype: torch.dtype, size: int,
     (Flax's ``param_dtype``) and compute in ``dtype``. The LSTM takes the
     fused cell's layout on the card (K2, weights in ``dtype`` as the JAX
     cell declares them) and the stock layout elsewhere, as the JAX runner
-    takes ``use_pallas=on_tpu``."""
+    takes ``use_pallas=on_tpu``. ``lfm2_moe`` is LFM2-8B-A1B at its
+    published widths (``lfm2.LFM2MoE``), for inference only; its ``size``
+    is the prompt length and does not shape the model."""
     from .deeplab import DeepLabV3
     from .lstm import LSTMClassifier
     from .resnet import resnet50, resnet152
@@ -99,6 +105,11 @@ def build_model(name: str, dtype: torch.dtype, size: int,
         return DeepLabV3(dtype=dtype, param_dtype=param_dtype)
     if name == "lstm":
         return LSTMClassifier(features=size, dtype=dtype, use_pallas=on_card)
+    if name == "lfm2_moe":
+        if train:
+            raise SystemExit("lfm2_moe runs inference only")
+        from .lfm2 import LFM2MoE
+        return LFM2MoE(dtype=dtype)
     raise SystemExit(f"unknown model {name}")
 
 

@@ -6,16 +6,20 @@ first use) and skips without one. Run them on the card with:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from k8s_device_plugin_torch.monitor import dutyprobe
 from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
-                                               pallas_ops, resnet)
+                                               lfm2, moe, pallas_ops, resnet)
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -529,3 +533,75 @@ def test_resnet50_eval_fused_matches_the_modules(cuda, dtype, launches, tol):
     scale = want.abs().max().item()
     assert scale > 0.1
     torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+def test_lfm2_forward_counts_its_kernels(cuda):
+    """A bf16 forward of LFM2-8B-A1B at its published widths, built by the
+    benchmark's tenant (``tenant.build``: the configuration's seeded
+    weights, nonzero expert bias included), on one prompt of 512
+    embeddings: 18 short convs, 22 grouped expert applies and 6 K3
+    absorbs, and finite logits over the whole vocabulary."""
+    from vgpu_bench import tenant
+    with open(os.path.join(REPO, "vgpu_bench", "configs",
+                           "lfm2-8b-a1b.prefill4k.json")) as f:
+        model = tenant.build(json.load(f), 0, cuda)
+    x = torch.randn(1, 512, model.cfg.dim, device=cuda).to(torch.bfloat16)
+    counters = (lfm2.short_conv, moe.expert_apply, flash.flash_absorb)
+    before = [c.launches for c in counters]
+    logits = harness.make_infer_fn(model)(x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [18, 22, 6]
+    assert logits.shape == (1, 65536) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    del model
+    torch.cuda.empty_cache()
+
+
+def test_lfm2_grouped_apply_matches_the_cpu_loop(cuda):
+    """One expert layer at published widths (32 experts of 1792, top 4)
+    on 4096 tokens: the two grouped products on the card against the loop
+    of plain fp32 products on the CPU, on the same routed tokens. bf16
+    rounds the first product, the gated SwiGLU and each expert's output
+    once (0.0057 of the largest output on the H100); a pair sent to the
+    wrong expert would read near 1."""
+    g = torch.Generator(cuda).manual_seed(0)
+    layer = moe.SigmoidMoE(2048, 1792, 32, 4, dtype=torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            fan_in = 1.0 if name == "expert_bias" else p.shape[-2]
+            p.normal_(0.0, fan_in ** -0.5, generator=g)
+    h = torch.randn(4096, 2048, device=cuda, generator=g).to(torch.bfloat16)
+    sel, gates = moe.route_sigmoid_topk(h, layer.router, layer.expert_bias, 4)
+    before = moe.expert_apply.launches
+    with torch.inference_mode():
+        got = moe.expert_apply(h, sel, gates, layer.w13, layer.w2)
+    assert moe.expert_apply.launches == before + 1
+    assert int(moe.expert_apply.last_counts.sum()) == 4096 * 4
+    want = moe.expert_apply(h.cpu().float(), sel.cpu(), gates.cpu(),
+                            layer.w13.cpu().float(), layer.w2.cpu().float())
+    err = (got.cpu().float() - want).abs().max() / want.abs().max()
+    assert err < 2e-2, err
+
+
+def test_lfm2_attention_takes_k3_wgmma(cuda):
+    """LFM2's attention (32 query heads over 8 KV heads of 64) runs K3 on
+    its ``wgmma`` route: one ``wg::flash_kernel`` launch, and nothing of
+    the other routes."""
+    from torch.profiler import ProfilerActivity, profile
+    assert flash.absorb_route(torch.bfloat16, 64, 1024) == "wgmma"
+    attn = lfm2.Attention(lfm2.LFM2_8B_A1B, torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for p in (attn.wqkv, attn.wo):
+            p.normal_(0.0, 0.02)
+        attn.q_norm.fill_(1.0)
+        attn.k_norm.fill_(1.0)
+    u = torch.randn(2, 1024, 2048, device=cuda).to(torch.bfloat16)
+    cos, sin = lfm2.rope_tables(torch.arange(1024, device=cuda), 64, 1e6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            torch.inference_mode():
+        out = lfm2.attention(u, attn, cos, sin, 1e-5)
+        torch.cuda.synchronize()
+    absorbs = [(e.key, e.count) for e in prof.key_averages()
+               if "flash_kernel" in e.key]
+    assert len(absorbs) == 1 and "wg::" in absorbs[0][0], absorbs
+    assert absorbs[0][1] == 1 and out.shape == u.shape

@@ -85,11 +85,12 @@ Phases, one JSON line each; any failure exits non-zero:
    family and the device's idle share; then LFM2-8B-A1B at its published
    widths (``lfm2_moe``), as the benchmark's tenant builds and serves it
    (4 prompts of 4096 embeddings): K3 at that shape against the plain
-   absorb, 18 short convs, 22 grouped expert applies and 6 K3 absorbs a
-   forward (else it fails), K3 on its ``wgmma`` route, the forward's
-   profile and most loaded expert, and one
-   expert layer's grouped products against the plain ones on the CPU on
-   the same routed tokens;
+   absorb, 18 short convs, 22 grouped expert applies, 6 K3 absorbs and
+   24 K6 passes a forward (else it fails), K3 on its ``wgmma`` route, the
+   forward's profile and most loaded expert, its logits bit-equal with
+   the SwiGLUs forced through the ATen chain, and one expert layer's
+   grouped products against the plain ones on the CPU on the same routed
+   tokens;
 14. correctness: the models on the card against the same weights on the
    CPU at small inputs (the MoE LM with its count of routing decisions
    that differ), greedy decoding of the LM and the MoE LM on the card
@@ -127,6 +128,10 @@ LSTM_CASE = (100, 300, 1024)
 #: side] (bn1, bn2; the stem's preact at stage 1's), ``add_bn_relu`` at
 #: four times the width. Stage 1's are each pass's largest input.
 RESNET_STAGES = ((64, 87), (128, 44), (256, 22), (512, 11))
+#: K6's shapes in LFM2-8B-A1B's cell (4 x 4096 tokens), (rows, hidden,
+#: gated): an MoE layer's 65,536 token-expert pairs at 1792 with their
+#: gates (22 a forward), a dense layer's 16,384 tokens at 7168 (2)
+SWIGLU_SHAPES = {"moe": (65536, 1792, True), "dense": (16384, 7168, False)}
 #: steps of each train path through the runner (after its 2 warm-up calls)
 TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5,
                "moe-lm": 3, "vgg16": 5, "deeplab": 3}
@@ -496,6 +501,56 @@ def phase_bn_relu_kernel() -> dict:
                     "replaces": "none: ATen's BatchNorm, ReLU and add passes",
                     "shape": list(t.shape), **line}
         del x, a, b
+    return results
+
+
+def phase_swiglu_kernel() -> dict:
+    """K6 (``csrc/swiglu.cu``) against its plain version, the ATen chain
+    it replaces (the SiLU and two multiplies), at both of
+    :data:`SWIGLU_SHAPES`: bit-equal (else it fails), the time beside the
+    chain's and the bound by bytes (h13 read, a written, the gate read),
+    and the bytes a second moved. Returns the ``kernels`` entry at the MoE
+    shape, 22 of the 24 launches a forward."""
+    import torch
+    from k8s_device_plugin_torch.workloads import swiglu
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for name, (rows, hidden, gated) in SWIGLU_SHAPES.items():
+        h13 = (torch.randn(rows, 2 * hidden, generator=gen, device=dev)
+               * 3).to(torch.bfloat16)
+        g = torch.rand(rows, generator=gen, device=dev).to(
+            torch.bfloat16) if gated else None
+
+        def kernel():
+            return swiglu.swiglu_gate(h13, g)
+
+        def plain():
+            return swiglu.swiglu_gate_reference(h13, g)
+        got, want = kernel(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"swiglu_gate {name}: {int((got != want).sum())} elements "
+                f"differ from the chain, {_bf16_ulps(got, want)} bf16 steps")
+        del got, want
+        ms, timing = device_ms(kernel, 50)
+        plain_ms, _ = device_ms(plain, 50)
+        nbytes = 3 * rows * hidden * 2 + (2 * rows if gated else 0)
+        line = {"bit_equal": True, "ms": ms, "kernel_ms": ms,
+                "timing": timing, "plain_ms": plain_ms,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes,
+                "tb_per_s": nbytes / ms / 1e9}
+        emit("kernel_swiglu_gate", case=name, shape=[rows, 2 * hidden],
+             gated=gated, dtype="bfloat16", **line,
+             share_of_bound=line["bound_ms"] / ms)
+        if name == "moe":
+            results["swiglu_gate"] = {
+                "name": "swiglu_gate", "route": "cuda",
+                "source": "k8s_device_plugin_torch/csrc/swiglu.cu",
+                "replaces": "none: ATen's SiLU and two multiplies",
+                "shape": [rows, 2 * hidden], **line}
+        del h13, g
     return results
 
 
@@ -1337,12 +1392,14 @@ def _runner_line(argv) -> dict:
 def _counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` its launches count."""
     from k8s_device_plugin_torch.monitor import dutyprobe
-    from k8s_device_plugin_torch.workloads import bn_relu, flash, pallas_ops
+    from k8s_device_plugin_torch.workloads import (bn_relu, flash,
+                                                   pallas_ops, swiglu)
     return {"probe_chain": dutyprobe.probe_chain,
             "lstm_cell": pallas_ops.lstm_cell,
             "flash_absorb": flash.flash_absorb,
             "bn_relu": bn_relu.bn_relu,
-            "add_bn_relu": bn_relu.add_bn_relu}
+            "add_bn_relu": bn_relu.add_bn_relu,
+            "swiglu_gate": swiglu.swiglu_gate}
 
 
 def _counting(by_path: dict):
@@ -1539,7 +1596,8 @@ def _check_own_paths(by_path: dict) -> None:
                             "moe_lm_train", "multichip_ring_flash",
                             "multichip_moe_lm_ring_flash"],
            "bn_relu": ["multichip_resnet50_infer"],
-           "add_bn_relu": ["multichip_resnet50_infer"]}
+           "add_bn_relu": ["multichip_resnet50_infer"],
+           "swiglu_gate": ["lfm2_moe_forward"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if path in by_path and by_path[path][name] <= 0]
     if missing:
@@ -2140,8 +2198,9 @@ def phase_moe_profile() -> None:
 
 
 #: LFM2-8B-A1B's kernels a forward: short convs, grouped expert applies
-#: (two ``_grouped_mm`` each), K3 absorbs
-LFM2_COUNTS = {"short_conv": 18, "expert_apply": 22, "flash_absorb": 6}
+#: (two ``_grouped_mm`` each), K3 absorbs, K6 passes (one a layer)
+LFM2_COUNTS = {"short_conv": 18, "expert_apply": 22, "flash_absorb": 6,
+               "swiglu_gate": 24}
 #: one expert layer's grouped bf16 products against fp32 ones, over the
 #: largest output: bf16 rounds the first product, the gated SwiGLU and each
 #: expert's output once (0.0057 on the H100); a pair sent to the wrong
@@ -2195,7 +2254,7 @@ def lfm2_routed_alike(model, cfg, x) -> tuple[float, float]:
             max_abs_err(control, want) / scale)
 
 
-def phase_lfm2_moe() -> None:
+def phase_lfm2_moe() -> dict:
     """LFM2-8B-A1B at its published widths, built and served as the
     benchmark's cell does (``vgpu_bench.tenant.build`` on the seed's
     weights, the first input of its pool, 4 prompts of 4096 embeddings):
@@ -2205,14 +2264,18 @@ def phase_lfm2_moe() -> None:
     output (tolerance 2e-2, as the LM case); then the counters of one
     forward (:data:`LFM2_COUNTS`, else it fails), K3's kernels all on the
     ``wgmma`` route (``wg::flash_kernel`` in the trace), the profile of a
-    forward (3 timed), the most loaded expert, and one layer's grouped
-    apply on the card against the loop of plain products on the CPU on the
-    same routed tokens, and the whole forward against the plain fp32
-    reference on the program's routing (:func:`lfm2_routed_alike`), where
-    the float8 control must miss the bound that the program meets."""
+    forward (3 timed), the most loaded expert, the logits bit-equal with
+    every SwiGLU forced through the ATen chain (else it fails), one
+    layer's grouped apply on the card against the loop of plain products
+    on the CPU on the same routed tokens, and the whole forward against
+    the plain fp32 reference on the program's routing
+    (:func:`lfm2_routed_alike`), where the float8 control must miss the
+    bound that the program meets. Returns the forward's launches of every
+    port kernel, as the main paths' (``lfm2_moe_forward``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from k8s_device_plugin_torch.workloads import attention, flash, lfm2, moe
+    from k8s_device_plugin_torch.workloads import (attention, flash, lfm2,
+                                                   moe, swiglu)
     from vgpu_bench import tenant, weights
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "vgpu_bench", "configs",
@@ -2250,15 +2313,15 @@ def phase_lfm2_moe() -> None:
         with torch.inference_mode():
             return model(x)
     counters = {"short_conv": lfm2.short_conv,
-                "expert_apply": moe.expert_apply,
-                "flash_absorb": flash.flash_absorb}
+                "expert_apply": moe.expert_apply, **_counters()}
     forward()
     for c in counters.values():
         c.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         logits = forward()
         torch.cuda.synchronize()
-    counts = {name: c.launches for name, c in counters.items()}
+    launched = {name: c.launches for name, c in counters.items()}
+    counts = {name: launched[name] for name in LFM2_COUNTS}
     if counts != LFM2_COUNTS:
         raise AssertionError(f"lfm2_moe: launches {counts}, expected "
                              f"{LFM2_COUNTS}")
@@ -2275,6 +2338,19 @@ def phase_lfm2_moe() -> None:
          mean_expert_load=batch * seq * model.cfg.top_k
          / model.cfg.experts, peak_bytes=torch.cuda.max_memory_allocated(),
          **_profile(forward, 3, top=12))
+    # K6 against the chain it replaced, through the whole model
+    saved = lfm2.swiglu_gate, moe.swiglu_gate
+    lfm2.swiglu_gate = moe.swiglu_gate = swiglu.swiglu_gate_reference
+    try:
+        chain = forward()
+    finally:
+        lfm2.swiglu_gate, moe.swiglu_gate = saved
+    if not torch.equal(logits, chain):
+        raise AssertionError(
+            f"lfm2_moe: logits with K6 differ from the chain's by "
+            f"{max_abs_err(logits, chain)}")
+    emit("lfm2_moe_swiglu_bit_equal", logits=list(logits.shape))
+    del chain
     # the grouped products against the plain ones, on the same routing
     lyr = model.layers[5].moe
     h = torch.randn(seq, model.cfg.dim, device="cuda",
@@ -2301,6 +2377,8 @@ def phase_lfm2_moe() -> None:
          bound=LFM2_ROUTED_BOUND)
     del model
     torch.cuda.empty_cache()
+    return {"lfm2_moe_forward": {name: launched[name]
+                                 for name in _counters()}}
 
 
 def phase_model_train_profiles() -> None:
@@ -2713,23 +2791,23 @@ def main() -> int:
     kernels = {"probe_chain": phase_probe_kernel(),
                "lstm_cell": phase_lstm_kernel(),
                "flash_absorb": phase_flash_kernel(),
-               **phase_bn_relu_kernel()}
+               **phase_bn_relu_kernel(), **phase_swiglu_kernel()}
     attention = phase_flash_grad()
     phase_lstm_grad()
     phase_enforcement_card(card)
     by_path = phase_main_path()
     by_path.update(phase_multichip_card())
     by_path.update(phase_multichip_moe())
-    _check_own_paths(by_path)
     phase_pipeline_card()
     phase_checkpoint_card()
-    launches = {name: sum(p[name] for p in by_path.values())
-                for name in kernels}
     phase_lm_profile()
     phase_lm_train_profile(attention)
     phase_model_train_profiles()
     phase_moe_profile()
-    phase_lfm2_moe()
+    by_path.update(phase_lfm2_moe())
+    _check_own_paths(by_path)
+    launches = {name: sum(p[name] for p in by_path.values())
+                for name in kernels}
     phase_correctness()
     phase_train_correctness()
     for name, k in kernels.items():

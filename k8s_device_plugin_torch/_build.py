@@ -183,20 +183,21 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     return reports
 
 
-def load(name: str, argtypes: list) -> ctypes.CDLL:
+def load(name: str, argtypes: list,
+         entry: str | None = None) -> ctypes.CDLL:
     """The kernel library for ``csrc/<name>.cu``, built on first use.
 
-    Its entry point ``vtpu_<name>`` returns a CUDA error code and takes
-    ``argtypes`` (``c_void_p`` for every pointer and stream, so ctypes
-    never cuts one to 32 bits)."""
+    Its entry point ``entry`` (default ``vtpu_<name>``) returns a CUDA
+    error code and takes ``argtypes`` (``c_void_p`` for every pointer and
+    stream, so ctypes never cuts one to 32 bits)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_target(name))
-            entry = getattr(lib, f"vtpu_{name}")
-            entry.argtypes = argtypes
-            entry.restype = ctypes.c_int
+            fn = getattr(lib, entry or f"vtpu_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
             lib.vtpu_error_string.argtypes = [ctypes.c_int]
             lib.vtpu_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

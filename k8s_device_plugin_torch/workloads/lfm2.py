@@ -24,10 +24,12 @@ The layer equations, over the residual stream x [B, T, D]:
   ``flash.flash_attention``: K3 on a card (the ``wgmma`` route at Dh 64),
   the plain absorb on the CPU;
 - FFN of the first ``dense_layers`` layers: SwiGLU W2 (silu(W1 u) * W3 u)
-  at ``ffn_hidden``; of the rest, ``moe.SigmoidMoE``: sigmoid scores over
-  ``experts``, the top ``top_k`` of score + expert bias, gates the
-  selected scores over their sum (+ 1e-6), times 1.0, every token reaching
-  its experts (grouped products on a card);
+  at ``ffn_hidden``, the SwiGLU one pass of K6 on a card
+  (``swiglu.swiglu_gate``, as between the experts' products); of the
+  rest, ``moe.SigmoidMoE``: sigmoid scores over ``experts``, the top
+  ``top_k`` of score + expert bias, gates the selected scores over their
+  sum (+ 1e-6), times 1.0, every token reaching its experts (grouped
+  products on a card);
 - the logits: RMSNorm_final(x_T) E^T at the last position only, in fp32,
   the head E [V, D] tied to the embedding table (``Lfm2MoeConfig``'s
   default; the published config states no ``tie_word_embeddings``).
@@ -42,9 +44,10 @@ embeddings [B, T, D] (a float tensor, as a serving engine's
 ``inputs_embeds``) or token ids [B, T] (looked up in the tied table).
 
 Counters for the card (a CPU call counts nothing): ``short_conv.launches``
-and ``moe.expert_apply.launches`` beside ``flash.flash_absorb.launches``,
-18, 22 and 6 a forward of LFM2-8B-A1B; ``moe.largest_expert_load()`` gives
-the last MoE layer's most loaded expert.
+and ``moe.expert_apply.launches`` beside ``flash.flash_absorb.launches``
+and ``swiglu.swiglu_gate.launches``, 18, 22, 6 and 24 a forward of
+LFM2-8B-A1B; ``moe.largest_expert_load()`` gives the last MoE layer's most
+loaded expert.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from torch import nn
 from .attention import apply_rope, expand_kv, rope_tables
 from .flash import flash_attention
 from .moe import SigmoidMoE
+from .swiglu import swiglu_gate
 
 
 @dataclass(frozen=True)
@@ -165,8 +169,7 @@ class SwiGLU(nn.Module):
         self.w2 = nn.Parameter(torch.empty(hidden, dim, dtype=dtype))
 
     def forward(self, u):
-        h1, h3 = (u @ self.w13).chunk(2, dim=-1)
-        return (F.silu(h1) * h3) @ self.w2
+        return swiglu_gate(u @ self.w13) @ self.w2
 
 
 class LFM2Layer(nn.Module):

@@ -33,8 +33,9 @@ experts; no JAX counterpart) routes every token to its k experts
 (:func:`expert_apply`): the token-expert pairs sorted by expert, each
 expert's SwiGLU on exactly its pairs, the gates folded into the second
 product's input, and each token's k results summed. On bf16 CUDA tensors
-each product is one ``torch._grouped_mm`` over all experts; elsewhere a
-loop of plain products, one expert at a time.
+each product is one ``torch._grouped_mm`` over all experts, and the gated
+SwiGLU between them one hand-written pass (``swiglu.swiglu_gate``);
+elsewhere a loop of plain products, one expert at a time.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from torch import nn
 from . import collectives
 from .attention import LMLayer, lm_forward, seq_shard
 from .harness import cross_entropy
+from .swiglu import swiglu_gate
 
 
 class MoE(nn.Module):
@@ -400,8 +402,9 @@ def expert_apply(h, sel, gates, w13, w2):
     computes a token not routed to it. The pairs are sorted by expert
     (stably, so in token order within one); on bf16 CUDA tensors each of
     the two products is one ``torch._grouped_mm`` over the sorted pairs
-    (counted in ``expert_apply.launches``), elsewhere a loop of plain
-    products over the experts. The per-expert pair counts of the last
+    (counted in ``expert_apply.launches``) with the gated SwiGLU between
+    them one pass of K6 (``swiglu.swiglu_gate``), elsewhere a loop of
+    plain products over the experts. The per-expert pair counts of the last
     call stay on the device as ``expert_apply.last_counts``
     (:func:`largest_expert_load` reads them)."""
     n, k = sel.shape
@@ -415,7 +418,7 @@ def expert_apply(h, sel, gates, w13, w2):
     g = gates.reshape(-1)[order].to(h.dtype)[:, None]
     if h.is_cuda and h.dtype == torch.bfloat16:
         h13 = torch._grouped_mm(xs, w13, offs=ends)
-        a = F.silu(h13[:, :hidden]).mul_(h13[:, hidden:]).mul_(g)
+        a = swiglu_gate(h13, g.view(-1))
         ys = torch._grouped_mm(a, w2, offs=ends)
         expert_apply.launches += 1
     else:

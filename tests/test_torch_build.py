@@ -41,7 +41,7 @@ def test_headers_are_not_built_on_their_own(csrc):
 
 def test_the_shipped_sources_are_the_three_kernels():
     assert _build.sources() == ["bn_relu", "flash_absorb", "lstm_cell",
-                                "probe_chain"]
+                                "probe_chain", "swiglu"]
 
 
 def test_host_libraries_build_with_cc_under_a_hash_of_their_sources(

@@ -15,7 +15,8 @@ import torch
 
 from k8s_device_plugin_torch.monitor import dutyprobe
 from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
-                                               lfm2, moe, pallas_ops, resnet)
+                                               lfm2, moe, pallas_ops, resnet,
+                                               swiglu)
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
@@ -539,18 +540,21 @@ def test_lfm2_forward_counts_its_kernels(cuda):
     """A bf16 forward of LFM2-8B-A1B at its published widths, built by the
     benchmark's tenant (``tenant.build``: the configuration's seeded
     weights, nonzero expert bias included), on one prompt of 512
-    embeddings: 18 short convs, 22 grouped expert applies and 6 K3
-    absorbs, and finite logits over the whole vocabulary."""
+    embeddings: 18 short convs, 22 grouped expert applies, 6 K3 absorbs
+    and 24 K6 passes (one a layer), and finite logits over the whole
+    vocabulary."""
     from vgpu_bench import tenant
     with open(os.path.join(REPO, "vgpu_bench", "configs",
                            "lfm2-8b-a1b.prefill4k.json")) as f:
         model = tenant.build(json.load(f), 0, cuda)
     x = torch.randn(1, 512, model.cfg.dim, device=cuda).to(torch.bfloat16)
-    counters = (lfm2.short_conv, moe.expert_apply, flash.flash_absorb)
+    counters = (lfm2.short_conv, moe.expert_apply, flash.flash_absorb,
+                swiglu.swiglu_gate)
     before = [c.launches for c in counters]
     logits = harness.make_infer_fn(model)(x)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [18, 22, 6]
+    assert [c.launches - b for c, b in zip(counters, before)] == [18, 22, 6,
+                                                                  24]
     assert logits.shape == (1, 65536) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
     del model

@@ -731,6 +731,7 @@ def phase_flash_grad() -> dict:
     calls)."""
     import torch
     import torch.nn.functional as F
+    from k8s_device_plugin_torch import _build
     from k8s_device_plugin_torch.workloads import flash, run
     from k8s_device_plugin_torch.workloads.attention import \
         reference_attention
@@ -766,10 +767,10 @@ def phase_flash_grad() -> dict:
     # block rebuilt per backward)
     by_block = {}
     for sb, absorbs in ((block, 3), (None, 1)):
-        launches = flash.flash_absorb.launches
+        launches = _build.launches["flash_absorb"]
         got = _grads(lambda *a, sb=sb: flash.flash_attention(
             *a, seq_block=sb), (q, k, v))
-        launches = flash.flash_absorb.launches - launches
+        launches = _build.launches["flash_absorb"] - launches
         errs = {}
         for name, g, w in zip("qkv", got, want):
             scale = w.float().abs().max().item()
@@ -828,6 +829,7 @@ def phase_lstm_grad() -> dict:
     of each parameter's largest |grad|."""
     import numpy as np
     import torch
+    from k8s_device_plugin_torch import _build
     from k8s_device_plugin_torch.workloads import harness, pallas_ops, run
     from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
     _, batch, features = run.CASES["lstm"]
@@ -847,12 +849,12 @@ def phase_lstm_grad() -> dict:
                     pallas_ops.lstm_cell_reference(
                         x_t, h, c, model.cell.wx, model.cell.wh,
                         model.cell.b)
-            launches = pallas_ops.lstm_cell.launches
+            launches = _build.launches["lstm_cell"]
             with no_tf32():
                 model.zero_grad(set_to_none=True)
                 harness.cross_entropy(model(x), labels).backward()
             grads.append({n: p.grad for n, p in model.named_parameters()})
-            if not plain and (pallas_ops.lstm_cell.launches - launches
+            if not plain and (_build.launches["lstm_cell"] - launches
                               != run.LSTM_STEPS):
                 raise AssertionError("the LSTM did not run K2 every step")
         errs = {}
@@ -954,31 +956,29 @@ def _fill(region, dev, limit: int) -> dict:
             "spill": spill, "violations": violations, "final_used": used}
 
 
-def _k2_loop(region, dev) -> dict:
+def _k2_loop(region) -> dict:
     """K2 at case 5.1 against its plain version under the shim, then its
     own entry on preallocated outputs in a loop for ``K2_LOOP_S``: the loop
     launches faster than the card runs the kernel, so uncapped it is bound
     by the card, and a core limit's share shows in its rate. Under a
     limit, the bucket's burst is spent first."""
     import torch
-    from k8s_device_plugin_torch import _build, bench
+    from k8s_device_plugin_torch import bench
     from k8s_device_plugin_torch.workloads import pallas_ops
     args = _lstm_args(*LSTM_CASE, torch.bfloat16)
     x, h, c, wx, wh, b = args
     err = max(check_close(f"lstm_cell under the shim {name}", g, w, 2e-2)
               for name, g, w in zip("hc", pallas_ops.lstm_cell(*args),
                                     pallas_ops.lstm_cell_reference(*args)))
-    lib = _build.load("lstm_cell", pallas_ops._ARGTYPES)
     route = pallas_ops.cell_route(x, h, wx, wh)
     h_out, c_out = torch.empty_like(h), torch.empty_like(c)
     batch, features, hidden = LSTM_CASE
     call = [pallas_ops.ROUTES[route], x.data_ptr(), h.data_ptr(),
             c.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            h_out.data_ptr(), c_out.data_ptr(), batch, features, hidden,
-            torch.cuda.current_stream(dev).cuda_stream]
+            h_out.data_ptr(), c_out.data_ptr(), batch, features, hidden]
 
     def launch():
-        _build.check(lib, lib.vtpu_lstm_cell(*call), "lstm_cell loop")
+        pallas_ops.LSTM_CELL(x, *call, label="lstm_cell loop")
     pct = region.data.sm_limit[0]
     drained = bench.drain_bucket(region, launch) if 0 < pct < 100 else 0
     torch.cuda.synchronize()
@@ -1145,11 +1145,11 @@ def _enforcement_child(case: str) -> int:
                 f"flash_absorb under the shim kind {kind}", args, kind, 2e-2)
             for kind in (1, 2)}
         del xw, args, launches
-        out["k2"] = _k2_loop(region, dev)
+        out["k2"] = _k2_loop(region)
         module["after_plain_versions"] = _own_kinds(region)[KIND_MODULE]
         out["cublas"] = _cublas_product(region, dev)
     elif case == "capped":
-        out["k2"] = _k2_loop(region, dev)
+        out["k2"] = _k2_loop(region)
         out["fill"] = _fill(region, dev, ENFORCE_CAP // ENFORCE_CHUNK + 4)
     elif case == "eager":
         out["windows"] = _eager_windows(region, dev)
@@ -1389,29 +1389,21 @@ def _runner_line(argv) -> dict:
     return line
 
 
-def _counters() -> dict:
-    """Each kernel's wrapper, whose ``launches`` its launches count."""
-    from k8s_device_plugin_torch.monitor import dutyprobe
-    from k8s_device_plugin_torch.workloads import (bn_relu, flash,
-                                                   pallas_ops, swiglu)
-    return {"probe_chain": dutyprobe.probe_chain,
-            "lstm_cell": pallas_ops.lstm_cell,
-            "flash_absorb": flash.flash_absorb,
-            "bn_relu": bn_relu.bn_relu,
-            "add_bn_relu": bn_relu.add_bn_relu,
-            "swiglu_gate": swiglu.swiglu_gate}
+#: the names read from ``_build.launches``: the six kernels', then LFM2's
+#: short convs and grouped expert applies
+COUNTED = ("probe_chain", "lstm_cell", "flash_absorb", "bn_relu",
+           "add_bn_relu", "swiglu_gate", "short_conv", "expert_apply")
 
 
 def _counting(by_path: dict):
-    """``counted(path, fn)``: every launch counter set to 0 just before
+    """``counted(path, fn)``: ``_build.launches`` cleared just before
     ``fn()`` and read just after, into ``by_path[path]``."""
-    counters = _counters()
+    from k8s_device_plugin_torch import _build
 
     def counted(path, fn):
-        for c in counters.values():
-            c.launches = 0
+        _build.launches.clear()
         out = fn()
-        by_path[path] = {name: c.launches for name, c in counters.items()}
+        by_path[path] = {name: _build.launches[name] for name in COUNTED}
         return out
     return counted
 
@@ -1427,7 +1419,6 @@ def phase_main_path() -> dict:
     just after; returns each kernel's launches by path."""
     from k8s_device_plugin_torch import bench
 
-    counters = _counters()
     by_path = {}
     counted = _counting(by_path)
 
@@ -1561,7 +1552,7 @@ def phase_main_path() -> dict:
         emit(case, **line, steps=steps, seconds=time.perf_counter() - t0)
 
     launches = {name: sum(p[name] for p in by_path.values())
-                for name in counters}
+                for name in COUNTED}
     emit("main_path_launches", **launches, by_path=by_path)
     _check_own_paths(by_path)
     # launches a call: the LM trains on 12 absorbs (3 per layer at
@@ -1575,7 +1566,7 @@ def phase_main_path() -> dict:
                 ("moe_lm_train", "flash_absorb"): (4, TRAIN_STEPS["moe-lm"])}
     per_call.update({(path, name): (0, 0) for path in (
         "moe_lm_decode", "vgg16_infer", "vgg16_train", "deeplab_infer",
-        "deeplab_train") for name in counters})
+        "deeplab_train") for name in COUNTED})
     # the ResNets train on the modules' own BatchNorm, ReLU and add
     per_call.update({(path, name): (0, 0) for path in (
         "resnet50_train", "resnet152_train")
@@ -1597,7 +1588,9 @@ def _check_own_paths(by_path: dict) -> None:
                             "multichip_moe_lm_ring_flash"],
            "bn_relu": ["multichip_resnet50_infer"],
            "add_bn_relu": ["multichip_resnet50_infer"],
-           "swiglu_gate": ["lfm2_moe_forward"]}
+           "swiglu_gate": ["lfm2_moe_forward"],
+           "short_conv": ["lfm2_moe_forward"],
+           "expert_apply": ["lfm2_moe_forward"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if path in by_path and by_path[path][name] <= 0]
     if missing:
@@ -2274,6 +2267,7 @@ def phase_lfm2_moe() -> dict:
     port kernel, as the main paths' (``lfm2_moe_forward``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from k8s_device_plugin_torch import _build
     from k8s_device_plugin_torch.workloads import (attention, flash, lfm2,
                                                    moe, swiglu)
     from vgpu_bench import tenant, weights
@@ -2312,15 +2306,12 @@ def phase_lfm2_moe() -> dict:
     def forward():
         with torch.inference_mode():
             return model(x)
-    counters = {"short_conv": lfm2.short_conv,
-                "expert_apply": moe.expert_apply, **_counters()}
     forward()
-    for c in counters.values():
-        c.launches = 0
+    _build.launches.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         logits = forward()
         torch.cuda.synchronize()
-    launched = {name: c.launches for name, c in counters.items()}
+    launched = {name: _build.launches[name] for name in COUNTED}
     counts = {name: launched[name] for name in LFM2_COUNTS}
     if counts != LFM2_COUNTS:
         raise AssertionError(f"lfm2_moe: launches {counts}, expected "
@@ -2377,8 +2368,7 @@ def phase_lfm2_moe() -> dict:
          bound=LFM2_ROUTED_BOUND)
     del model
     torch.cuda.empty_cache()
-    return {"lfm2_moe_forward": {name: launched[name]
-                                 for name in _counters()}}
+    return {"lfm2_moe_forward": launched}
 
 
 def phase_model_train_profiles() -> None:
@@ -2641,6 +2631,7 @@ def phase_train_correctness() -> None:
     1e-6."""
     import numpy as np
     import torch
+    from k8s_device_plugin_torch import _build
     from k8s_device_plugin_torch.workloads import flash, harness, moe, run
     from k8s_device_plugin_torch.workloads.attention import (init_lm_params,
                                                              lm_loss)
@@ -2675,9 +2666,9 @@ def phase_train_correctness() -> None:
         step = sgd_step(lambda m, t: lm_loss(m, t, use_flash=True,
                                              flash_seq_block=32), 0.0)
         want = _train_step_on("cpu", lm, step, tokens)
-        launches = flash.flash_absorb.launches
+        launches = _build.launches["flash_absorb"]
         got = _train_step_on("cuda", lm, step, tokens)
-        if flash.flash_absorb.launches - launches != 3 * layers:
+        if _build.launches["flash_absorb"] - launches != 3 * layers:
             raise AssertionError("the LM train step did not run K3 3 times "
                                  "a layer")
         report["lm"] = {"loss": got[0],
@@ -2722,9 +2713,9 @@ def phase_train_correctness() -> None:
         step = sgd_step(lambda m, t: moe.moe_lm_loss(
             m, t, use_flash=True, shard_shape=(2, 2)), 0.0)
         want = _train_step_on("cpu", moe_lm, step, tokens)
-        launches = flash.flash_absorb.launches
+        launches = _build.launches["flash_absorb"]
         got = _train_step_on("cuda", moe_lm, step, tokens)
-        if flash.flash_absorb.launches - launches != layers:
+        if _build.launches["flash_absorb"] - launches != layers:
             raise AssertionError("the MoE LM train step did not run K3 once "
                                  "a layer")
         report["moe_lm"] = {"loss": got[0],

@@ -48,13 +48,13 @@ EDITS = [
     ("vgpu_bench/tenant.py", """    calls, kept, errors, failed = [], [], [], 0
     gc.disable()  # no collector pauses inside the window
 """, """    calls, kept, errors, failed = [], [], [], 0
+    from k8s_device_plugin_torch import _build
     from k8s_device_plugin_torch.shm import counters as shim_counters
-    from k8s_device_plugin_torch.workloads import flash, pallas_ops
 
     def edge():
         got = shim_counters.spans(0)
         return (shim_counters.counters(0), None if got is None else got[1],
-                pallas_ops.lstm_cell.launches, flash.flash_absorb.launches)
+                _build.launches["lstm_cell"], _build.launches["flash_absorb"])
     before = edge()
     gc.disable()  # no collector pauses inside the window
 """),

@@ -8,6 +8,9 @@ build in parallel, one ``nvcc`` each. Nothing is built when this module is
 imported: the first launch of a kernel (or an explicit :func:`build_all`)
 builds it. :func:`set_build_dir` moves the libraries elsewhere (the compile
 cache, ``workloads/harness.setup_compile_cache``) before the first load.
+A :class:`Kernel` is the one way the wrappers launch a C entry: it loads
+the library, passes the current stream, raises on an error and counts the
+launch in :data:`launches`.
 
 The host libraries (``csrc/*.c``, :data:`HOST_LIBRARIES`: the enforcement
 shim, the shared region's primitives, the mock driver) build the same way
@@ -18,6 +21,7 @@ They need no CUDA toolkit. nvcc never sees them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -49,6 +53,11 @@ CC_LIBS = ("-ldl", "-lpthread")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+#: launches on a card since the last ``launches.clear()``, by name: each
+#: :class:`Kernel`'s under :attr:`Kernel.name`, and the model paths that
+#: the card's checks count (``short_conv``, ``expert_apply``) under theirs
+launches: collections.Counter = collections.Counter()
 
 
 def set_build_dir(path: str | None = None) -> str:
@@ -183,21 +192,13 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     return reports
 
 
-def load(name: str, argtypes: list,
-         entry: str | None = None) -> ctypes.CDLL:
-    """The kernel library for ``csrc/<name>.cu``, built on first use.
-
-    Its entry point ``entry`` (default ``vtpu_<name>``) returns a CUDA
-    error code and takes ``argtypes`` (``c_void_p`` for every pointer and
-    stream, so ctypes never cuts one to 32 bits)."""
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel library for ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(_target(name))
-            fn = getattr(lib, entry or f"vtpu_{name}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
             lib.vtpu_error_string.argtypes = [ctypes.c_int]
             lib.vtpu_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
@@ -209,3 +210,39 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.vtpu_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _stream(on) -> int:
+    """The current raw CUDA stream of tensor ``on``'s device."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(on.get_device())
+
+
+class Kernel:
+    """The C entry ``entry`` of ``csrc/<library>.cu``. It returns a CUDA
+    error code and takes ``argtypes`` (``c_void_p`` for every pointer, so
+    ctypes never cuts one to 32 bits), then the stream.
+
+    ``kernel(on, *args, label=None)`` builds and loads the library at the
+    first call, launches with ``args`` on the current stream of tensor
+    ``on``'s device, raises through :func:`check` (the message names
+    ``label``, default :attr:`name`) and, once the entry returned
+    success, counts one launch in :data:`launches` under :attr:`name`,
+    ``entry`` without its ``vtpu_`` prefix."""
+
+    def __init__(self, library: str, entry: str, argtypes: list):
+        self.library = library
+        self.entry = entry
+        self.name = entry.removeprefix("vtpu_")
+        self._argtypes = [*argtypes, ctypes.c_void_p]
+        self._lib = self._fn = None
+
+    def __call__(self, on, *args, label: str | None = None) -> None:
+        if self._fn is None:
+            lib = _library(self.library)
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        check(self._lib, self._fn(*args, _stream(on)), label or self.name)
+        launches[self.name] += 1

@@ -33,8 +33,9 @@ DEFAULT_ALPHA = 0.4
 #: idle-card time of one probe launch that calibration aims for
 TARGET_MS = 5.0
 
-# x, w, out, sink, n, steps, grid, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# x, w, out, sink, n, steps, grid
+PROBE_CHAIN = _build.Kernel("probe_chain", "vtpu_probe_chain",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 
 
 def probe_chain_reference(x: torch.Tensor, w: torch.Tensor,
@@ -66,17 +67,9 @@ def probe_chain(x: torch.Tensor, w: torch.Tensor, steps: int) -> torch.Tensor:
     grid = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = torch.empty_like(x)
     sink = torch.empty(grid, dtype=torch.float32, device=x.device)
-    lib = _build.load("probe_chain", _ARGTYPES)
-    err = lib.vtpu_probe_chain(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), sink.data_ptr(), n,
-        steps, grid, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "probe_chain")
-    probe_chain.launches += 1
+    PROBE_CHAIN(x, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                sink.data_ptr(), n, steps, grid)
     return out
-
-
-#: kernel launches since the last reset (CPU calls do not count)
-probe_chain.launches = 0
 
 
 def probe_operands(size: int) -> tuple[np.ndarray, np.ndarray]:

@@ -56,10 +56,12 @@ WGMMA_HEAD_DIM = 64
 #: it misses the LM-case check, see the kernel's header)
 ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2, "wgmma_round_p": 3}
 # route, q, k, v, strides, m, l, o, m_out, l_out, o_out, batch, heads, tq,
-# tk, dim, kind, scale, stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6
-             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+# tk, dim, kind, scale
+FLASH_ABSORB = _build.Kernel(
+    "flash_absorb", "vtpu_flash_absorb",
+    [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 6 + [ctypes.c_float])
 
 
 def absorb_block_reference(q, k, v, allowed, m, l, o, scale: float):
@@ -258,20 +260,12 @@ def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
     strides = (ctypes.c_longlong * 9)(
         *_kernel_strides(q), *_kernel_strides(k), *_kernel_strides(v))
     m_out, l_out, o_out = (torch.empty_like(t) for t in (m, l, o))
-    lib = _build.load("flash_absorb", _ARGTYPES)
-    err = lib.vtpu_flash_absorb(
-        ROUTES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+    FLASH_ABSORB(
+        q, ROUTES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
         m.data_ptr(), l.data_ptr(), o.data_ptr(), m_out.data_ptr(),
         l_out.data_ptr(), o_out.data_ptr(), batch, heads, tq, tk, dim, kind,
-        1.0 / math.sqrt(dim),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, f"flash_absorb ({route})")
-    flash_absorb.launches += 1
+        1.0 / math.sqrt(dim), label=f"flash_absorb ({route})")
     return m_out, l_out, o_out
-
-
-#: kernel launches since the last reset (CPU calls do not count)
-flash_absorb.launches = 0
 
 
 def _fit_tile(n: int, want: int) -> int:

@@ -43,11 +43,11 @@ experts read it in the weights' dtype. ``forward`` takes
 embeddings [B, T, D] (a float tensor, as a serving engine's
 ``inputs_embeds``) or token ids [B, T] (looked up in the tied table).
 
-Counters for the card (a CPU call counts nothing): ``short_conv.launches``
-and ``moe.expert_apply.launches`` beside ``flash.flash_absorb.launches``
-and ``swiglu.swiglu_gate.launches``, 18, 22, 6 and 24 a forward of
-LFM2-8B-A1B; ``moe.largest_expert_load()`` gives the last MoE layer's most
-loaded expert.
+Counters for the card (a CPU call counts nothing): ``_build.launches``
+under ``short_conv``, ``expert_apply``, ``flash_absorb`` and
+``swiglu_gate``, 18, 22, 6 and 24 a forward of LFM2-8B-A1B;
+``moe.largest_expert_load()`` gives the last MoE layer's most loaded
+expert.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _build
 from .attention import apply_rope, expand_kv, rope_tables
 from .flash import flash_attention
 from .moe import SigmoidMoE
@@ -119,12 +120,8 @@ def short_conv(u, conv: ShortConv):
     for shift in range(1, min(taps, v.shape[1])):
         z[:, shift:].addcmul_(v[:, :-shift], conv.kernel[taps - 1 - shift])
     if u.is_cuda:
-        short_conv.launches += 1
+        _build.launches["short_conv"] += 1
     return (c * z) @ conv.out_proj
-
-
-#: short convolutions run on a card since the last reset
-short_conv.launches = 0
 
 
 class Attention(nn.Module):

@@ -47,6 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _build
 from . import collectives
 from .attention import LMLayer, lm_forward, seq_shard
 from .harness import cross_entropy
@@ -402,34 +403,34 @@ def expert_apply(h, sel, gates, w13, w2):
     computes a token not routed to it. The pairs are sorted by expert
     (stably, so in token order within one); on bf16 CUDA tensors each of
     the two products is one ``torch._grouped_mm`` over the sorted pairs
-    (counted in ``expert_apply.launches``) with the gated SwiGLU between
-    them one pass of K6 (``swiglu.swiglu_gate``), elsewhere a loop of
-    plain products over the experts. The per-expert pair counts of the last
-    call stay on the device as ``expert_apply.last_counts``
-    (:func:`largest_expert_load` reads them)."""
+    (counted in ``_build.launches["expert_apply"]``) with the gated
+    SwiGLU between them one pass of K6 (``swiglu.swiglu_gate``),
+    elsewhere a loop of plain products over the experts with
+    ``swiglu_gate``'s plain version between them. The per-expert pair
+    counts of the last call stay on the device as
+    ``expert_apply.last_counts`` (:func:`largest_expert_load` reads
+    them)."""
     n, k = sel.shape
-    n_experts, hidden = w2.shape[0], w2.shape[1]
+    n_experts = w2.shape[0]
     experts, order = torch.sort(sel.reshape(-1), stable=True)
     # each expert's end among the sorted pairs: found on the device, so
     # the host never waits for the routing
     ends = torch.searchsorted(experts, torch.arange(
         1, n_experts + 1, device=sel.device), out_int32=True)
     xs = h.index_select(0, order // k)
-    g = gates.reshape(-1)[order].to(h.dtype)[:, None]
+    g = gates.reshape(-1)[order].to(h.dtype)
     if h.is_cuda and h.dtype == torch.bfloat16:
         h13 = torch._grouped_mm(xs, w13, offs=ends)
-        a = swiglu_gate(h13, g.view(-1))
+        a = swiglu_gate(h13, g)
         ys = torch._grouped_mm(a, w2, offs=ends)
-        expert_apply.launches += 1
+        _build.launches["expert_apply"] += 1
     else:
         ys = torch.empty_like(xs)
         start = 0
         for e, end in enumerate(ends.tolist()):
             if end > start:
                 rows = slice(start, end)
-                h13 = xs[rows] @ w13[e]
-                a = F.silu(h13[:, :hidden]) * h13[:, hidden:] * g[rows]
-                ys[rows] = a @ w2[e]
+                ys[rows] = swiglu_gate(xs[rows] @ w13[e], g[rows]) @ w2[e]
                 start = end
     expert_apply.last_counts = torch.diff(ends, prepend=ends.new_zeros(1))
     # back to token order: pair p was sorted to row place[p]
@@ -438,9 +439,6 @@ def expert_apply(h, sel, gates, w13, w2):
     return ys.index_select(0, place).view(n, k, -1).sum(dim=1)
 
 
-#: grouped applies since the last reset (two ``_grouped_mm`` launches
-#: each; the loop does not count)
-expert_apply.launches = 0
 expert_apply.last_counts = None
 
 

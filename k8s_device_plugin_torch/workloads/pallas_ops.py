@@ -33,9 +33,10 @@ from .. import _build
 #: kernel routes by name: fp32 on FMA; bf16 with element-wise loads; bf16
 #: through the cp.async ring and wgmma (see the kernel's header)
 ROUTES = {"fma": 0, "elementwise": 1, "ring": 2}
-# route, x, h, c, wx, wh, b, h_out, c_out, rows, features, hidden, stream
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+# route, x, h, c, wx, wh, b, h_out, c_out, rows, features, hidden
+LSTM_CELL = _build.Kernel(
+    "lstm_cell", "vtpu_lstm_cell",
+    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3)
 
 
 def cell_route(x, h, wx, wh) -> str:
@@ -115,17 +116,9 @@ def _cell(x, h, c, wx, wh, b):
         raise ValueError(f"lstm_cell: no kernel for {x.dtype}")
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
-    lib = _build.load("lstm_cell", _ARGTYPES)
     route = cell_route(x, h, wx, wh)
-    err = lib.vtpu_lstm_cell(
-        ROUTES[route], x.data_ptr(), h.data_ptr(), c.data_ptr(),
-        wx.data_ptr(), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(),
-        c_out.data_ptr(), batch, features, hidden,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, f"lstm_cell ({route})")
-    lstm_cell.launches += 1
+    LSTM_CELL(x, ROUTES[route], x.data_ptr(), h.data_ptr(), c.data_ptr(),
+              wx.data_ptr(), wh.data_ptr(), b.data_ptr(), h_out.data_ptr(),
+              c_out.data_ptr(), batch, features, hidden,
+              label=f"lstm_cell ({route})")
     return h_out, c_out
-
-
-#: kernel launches since the last reset (CPU calls do not count)
-lstm_cell.launches = 0

@@ -209,22 +209,14 @@ class ResNetV2(nn.Module):
         x = self.conv_root(x)
         x, pad = _pad_same(x, 3, 2, value=float("-inf"))
         x = F.max_pool2d(x, 3, stride=2, padding=pad)
-        # a dispatch on the input, not a fallback: the kernels are bf16
-        # CUDA only and have no backward, and they raise on a layout or a
-        # width they do not take
-        kernel = (not self.training and x.is_cuda
-                  and x.dtype == torch.bfloat16)
-        bn_relu = fused.bn_relu if kernel else fused.bn_relu_reference
-        add_bn_relu = (fused.add_bn_relu if kernel
-                       else fused.add_bn_relu_reference)
         # block k's add goes with block k+1's preact BatchNorm and ReLU
         # (the last with final_bn's), and its sum is kept only where block
         # k+1's shortcut is the identity
         blocks = [getattr(self, name) for name in self.block_names]
-        preact = bn_relu(x, blocks[0].preact_bn)
+        preact = fused.bn_relu(x, blocks[0].preact_bn)
         for block, after in zip(blocks, blocks[1:] + [None]):
-            shortcut, residual = block.branches(x, preact, bn_relu)
-            x, preact = add_bn_relu(
+            shortcut, residual = block.branches(x, preact, fused.bn_relu)
+            x, preact = fused.add_bn_relu(
                 shortcut, residual,
                 self.final_bn if after is None else after.preact_bn,
                 keep_sum=after is not None and after.proj is None)

@@ -25,9 +25,10 @@ import torch.nn.functional as F
 
 from .. import _build
 
-# h13, g (nullable), a, rows, hidden, stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_void_p]
+# h13, g (nullable), a, rows, hidden
+SWIGLU_GATE = _build.Kernel(
+    "swiglu", "vtpu_swiglu_gate",
+    [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int])
 
 
 def swiglu_gate_reference(h13: torch.Tensor,
@@ -69,14 +70,6 @@ def swiglu_gate(h13: torch.Tensor,
         return swiglu_gate_reference(h13, g)
     rows, hidden = _checked(h13, g)
     a = h13.new_empty((*h13.shape[:-1], hidden))
-    lib = _build.load("swiglu", _ARGTYPES, entry="vtpu_swiglu_gate")
-    err = lib.vtpu_swiglu_gate(
-        h13.data_ptr(), None if g is None else g.data_ptr(), a.data_ptr(),
-        rows, hidden, torch._C._cuda_getCurrentRawStream(h13.get_device()))
-    _build.check(lib, err, "swiglu_gate")
-    swiglu_gate.launches += 1
+    SWIGLU_GATE(h13, h13.data_ptr(), None if g is None else g.data_ptr(),
+                a.data_ptr(), rows, hidden)
     return a
-
-
-#: kernel launches since the last reset (the plain version does not count)
-swiglu_gate.launches = 0

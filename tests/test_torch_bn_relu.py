@@ -1,9 +1,10 @@
 """The fused eval BatchNorm + ReLU passes (``workloads/bn_relu.py``) on the
 CPU: their plain versions against the modules' own path, the ResNet's loop
 that carries (sum, pre-activation), in eval and in training, against its
-blocks run one by one, and the kernel wrappers' refusals, which come
-before any build. The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``).
+blocks run one by one, and the kernel wrappers: the plain versions on
+CPU tensors and dtypes other than bf16, and the refusals of a layout or a
+width, which come before any build. The kernels themselves run only on
+the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -11,6 +12,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.workloads import bn_relu, harness, resnet
 from torch_support import one_torch_thread  # noqa: F401
 
@@ -93,10 +95,9 @@ def test_eval_loop_is_the_blocks_path_and_launches_no_kernel_on_the_cpu(
             m.load_state_dict(_bn(m.num_features, seed=k).state_dict())
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 32, 32, 3)).astype(np.float32))
-    counts = (bn_relu.bn_relu.launches, bn_relu.add_bn_relu.launches)
+    counts = _counts()
     got = harness.make_infer_fn(model)(x)
-    assert (bn_relu.bn_relu.launches,
-            bn_relu.add_bn_relu.launches) == counts == (0, 0)
+    assert _counts() == counts == (0, 0)
     with torch.inference_mode():
         want = _blocks_one_by_one(model, x)
     _same(got, want)
@@ -116,19 +117,27 @@ def test_train_loop_is_the_blocks_path():
         _same(model(x), _blocks_one_by_one(twin, x))
     for (name, got), want in zip(model.named_buffers(), twin.buffers()):
         assert torch.equal(got, want), name
-    assert (bn_relu.bn_relu.launches, bn_relu.add_bn_relu.launches) == (0, 0)
+    assert _counts() == (0, 0)
+
+
+def _counts() -> tuple[int, int]:
+    return _build.launches["bn_relu"], _build.launches["add_bn_relu"]
 
 
 @pytest.mark.parametrize("case,match", [
-    ("float32", "only bf16"),
+    ("float32", None),
     ("nchw", "channels-last"),
     ("channels", "12 channels"),
-    ("cpu", "device cpu"),
+    ("cpu", None),
 ])
 def test_kernel_wrappers_refuse_before_building(case, match, monkeypatch):
+    """A float32 or a CPU input is the plain versions', with no build and
+    no count; on input the wrappers take for the kernel (bf16 on a card,
+    made to hold here), a layout or a width it cannot read raises before
+    any build."""
     def no_build(*_):
         raise AssertionError("the wrapper built the kernel")
-    monkeypatch.setattr(bn_relu._build, "load", no_build)
+    monkeypatch.setattr(bn_relu._build, "_library", no_build)
     channels = 12 if case == "channels" else 16
     bn = _bn(channels, seed=0)
     x = _activation(channels, torch.bfloat16, seed=0)
@@ -136,8 +145,16 @@ def test_kernel_wrappers_refuse_before_building(case, match, monkeypatch):
         x = x.float()
     elif case == "nchw":
         x = x.contiguous()
-    with pytest.raises(ValueError, match=match):
-        bn_relu.bn_relu(x, bn)
-    with pytest.raises(ValueError, match=match):
-        bn_relu.add_bn_relu(x, x, bn, keep_sum=False)
-    assert (bn_relu.bn_relu.launches, bn_relu.add_bn_relu.launches) == (0, 0)
+    counts = _counts()
+    if match is None:
+        _same(bn_relu.bn_relu(x, bn), bn_relu.bn_relu_reference(x, bn))
+        s, y = bn_relu.add_bn_relu(x, x, bn, keep_sum=False)
+        assert s is None
+        _same(y, bn_relu.add_bn_relu_reference(x, x, bn)[1])
+    else:
+        monkeypatch.setattr(bn_relu, "_kernel_takes", lambda *_: True)
+        with pytest.raises(ValueError, match=match):
+            bn_relu.bn_relu(x, bn)
+        with pytest.raises(ValueError, match=match):
+            bn_relu.add_bn_relu(x, x, bn, keep_sum=False)
+    assert _counts() == counts == (0, 0)

@@ -1,5 +1,8 @@
-"""The port's kernel builder: what names a built library (no nvcc needed)."""
+"""The port's kernel builder: what names a built library, and the launch
+seam every kernel goes through (no nvcc needed)."""
 
+import collections
+import ctypes
 import os
 
 import pytest
@@ -62,3 +65,53 @@ def test_host_libraries_build_with_cc_under_a_hash_of_their_sources(
     second = _build.host_library("host")
     assert second != first and os.path.exists(second)
     assert _build.sources() == ["kern"]
+
+
+class _FakeLibrary:
+    """A kernel library's stand-in: its entry ``vtpu_fake`` records its
+    arguments and returns ``err``."""
+
+    def __init__(self, err: int):
+        self.calls = []
+
+        def entry(*args):
+            self.calls.append(args)
+            return err
+        self.vtpu_fake = entry
+
+    def vtpu_error_string(self, err: int) -> bytes:
+        return b"fake failure"
+
+
+@pytest.fixture
+def fake_kernel(monkeypatch):
+    """A :class:`_build.Kernel` over a fake library on stream 0xbeef,
+    with an empty launch count of its own."""
+    monkeypatch.setattr(_build, "_stream", lambda on: 0xbeef)
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+
+    def make(err: int):
+        lib = _FakeLibrary(err)
+        monkeypatch.setitem(_build._LIBS, "fake", lib)
+        return lib, _build.Kernel("fake", "vtpu_fake", [ctypes.c_int] * 2)
+    return make
+
+
+def test_kernel_passes_the_stream_last_and_counts_a_launch(fake_kernel):
+    lib, kernel = fake_kernel(0)
+    kernel(object(), 3, 4)
+    assert lib.calls == [(3, 4, 0xbeef)]
+    assert lib.vtpu_fake.argtypes == [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    assert lib.vtpu_fake.restype is ctypes.c_int
+    assert _build.launches == {"fake": 1}
+
+
+def test_kernel_raises_on_an_error_with_its_name_and_counts_nothing(
+        fake_kernel):
+    lib, kernel = fake_kernel(700)
+    with pytest.raises(RuntimeError,
+                       match=r"^fake: CUDA error 700 \(fake failure\)"):
+        kernel(object(), 3, 4)
+    with pytest.raises(RuntimeError, match=r"^fake \(ring\): CUDA error"):
+        kernel(object(), 3, 4, label="fake (ring)")
+    assert len(lib.calls) == 2 and not _build.launches

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.monitor import dutyprobe
 from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
-                                               lfm2, moe, pallas_ops, resnet,
-                                               swiglu)
+                                               lfm2, moe, pallas_ops, resnet)
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
@@ -40,10 +40,10 @@ def cuda():
 def test_probe_chain_kernel_matches_plain(cuda, size):
     x, w = (torch.from_numpy(a).to(cuda)
             for a in dutyprobe.probe_operands(size))
-    before = dutyprobe.probe_chain.launches
+    before = _build.launches["probe_chain"]
     got = dutyprobe.probe_chain(x, w, 16)
     torch.cuda.synchronize()
-    assert dutyprobe.probe_chain.launches == before + 1
+    assert _build.launches["probe_chain"] == before + 1
     want = dutyprobe.probe_chain_reference(x, w, 16)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -61,10 +61,10 @@ def test_lstm_cell_kernel_matches_plain(cuda, dtype, tol, batch, features,
     args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)
                              * (0.1 if i >= 3 else 1.0)).to(cuda, dtype)
             for i, s in enumerate(shapes)]
-    before = pallas_ops.lstm_cell.launches
+    before = _build.launches["lstm_cell"]
     got = pallas_ops.lstm_cell(*args)
     torch.cuda.synchronize()
-    assert pallas_ops.lstm_cell.launches == before + 1
+    assert _build.launches["lstm_cell"] == before + 1
     want = pallas_ops.lstm_cell_reference(*args)
     for g, w in zip(got, want):
         assert g.dtype == dtype
@@ -125,10 +125,10 @@ def _flash_args(batch, tq, tk, heads, dim, dtype, device, seed=0):
 def test_flash_absorb_kernel_matches_plain(cuda, dtype, tol, kind, tq, tk,
                                            heads, dim):
     q, k, v, m, l, o = _flash_args(2, tq, tk, heads, dim, dtype, cuda)
-    before = flash.flash_absorb.launches
+    before = _build.launches["flash_absorb"]
     got = flash.flash_absorb(q, k, v, kind, m, l, o)
     torch.cuda.synchronize()
-    assert flash.flash_absorb.launches == before + 1
+    assert _build.launches["flash_absorb"] == before + 1
     if kind == 2:  # the state passes through bit for bit
         for g, w in zip(got, (m, l, o)):
             assert torch.equal(g, w)
@@ -175,10 +175,10 @@ def test_flash_attention_gradients_on_the_card_match_dense(cuda, dtype, tol,
     q, k, v, *_ = _flash_args(2, 96, 96, 4, 64, dtype, cuda, seed=4)
     for causal in (True, False):
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = flash.flash_absorb.launches
+        before = _build.launches["flash_absorb"]
         out = flash.flash_attention(*qkv, causal=causal, seq_block=seq_block)
         pairs = 1 if seq_block is None else (6 if causal else 9)
-        assert flash.flash_absorb.launches == before + pairs
+        assert _build.launches["flash_absorb"] == before + pairs
         got = torch.autograd.grad(torch.sin(out.float()).sum(), qkv)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(torch.sin(reference_attention(
@@ -200,9 +200,9 @@ def test_lstm_cell_weights_get_their_gradients_on_the_card(cuda, dtype, tol):
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (10, 4, 300)).astype(np.float32)).to(cuda)
     labels = torch.zeros(10, dtype=torch.long, device=cuda)
-    before = pallas_ops.lstm_cell.launches
+    before = _build.launches["lstm_cell"]
     harness.cross_entropy(model(x), labels).backward()
-    assert pallas_ops.lstm_cell.launches == before + 4
+    assert _build.launches["lstm_cell"] == before + 4
     got = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad()
     plain = LSTMClassifier(300, dtype=dtype).to(cuda)
@@ -295,11 +295,11 @@ def test_lm_with_the_kernel_matches_dense_attention(cuda, dtype, tol,
                            dtype=dtype, kv_heads=kv_heads, device=cuda)
     tokens = torch.randint(0, 8192, (2, 200),
                            generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = flash.flash_absorb.launches
+    before = _build.launches["flash_absorb"]
     with torch.inference_mode():
         got = lm_forward(model, tokens, use_flash=True).float()
         want = lm_forward(model, tokens).float()
-    assert flash.flash_absorb.launches == before + 2  # one per layer
+    assert _build.launches["flash_absorb"] == before + 2  # one per layer
     scale = want.abs().max()
     torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=tol)
 
@@ -335,9 +335,9 @@ def test_whole_sequence_absorb_gradient_at_the_moe_lm_train_shape(cuda):
         leaves = [t.clone().requires_grad_() for t in inputs]
         out = torch.sin(fn(*leaves).float()).sum()
         return torch.autograd.grad(out, leaves)
-    before = flash.flash_absorb.launches
+    before = _build.launches["flash_absorb"]
     got = grads(lambda *a: flash.flash_attention(*a, seq_block=None))
-    assert flash.flash_absorb.launches == before + 1
+    assert _build.launches["flash_absorb"] == before + 1
     want = grads(reference_attention)
     for g, w in zip(got, want):
         scale = w.float().abs().max()
@@ -452,10 +452,10 @@ def _bf16_ulps(got, want) -> int:
 def test_bn_relu_kernel_matches_plain_at_the_stage_shapes(cuda, width, side):
     x = _card_activation((50, width, side, side), cuda, seed=width)
     bn = _card_bn(width, cuda, seed=width)
-    before = bn_relu.bn_relu.launches
+    before = _build.launches["bn_relu"]
     got = bn_relu.bn_relu(x, bn)
     torch.cuda.synchronize()
-    assert bn_relu.bn_relu.launches == before + 1
+    assert _build.launches["bn_relu"] == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert _bf16_ulps(got, bn_relu.bn_relu_reference(x, bn)) <= 1
 
@@ -468,10 +468,10 @@ def test_add_bn_relu_kernel_matches_plain_at_the_stage_shapes(
     a = _card_activation(shape, cuda, seed=1)
     b = _card_activation(shape, cuda, seed=2)
     bn = _card_bn(4 * width, cuda, seed=width)
-    before = bn_relu.add_bn_relu.launches
+    before = _build.launches["add_bn_relu"]
     s, y = bn_relu.add_bn_relu(a, b, bn, keep_sum=keep_sum)
     torch.cuda.synchronize()
-    assert bn_relu.add_bn_relu.launches == before + 1
+    assert _build.launches["add_bn_relu"] == before + 1
     want_s, want_y = bn_relu.add_bn_relu_reference(a, b, bn)
     if keep_sum:
         assert s.is_contiguous(memory_format=torch.channels_last)
@@ -486,13 +486,22 @@ def test_bn_relu_kernels_refuse_what_they_do_not_take(cuda):
     x = _card_activation((2, 16, 5, 3), cuda, seed=0)
     odd = _card_activation((2, 12, 5, 3), cuda, seed=0)
     cases = [(x.contiguous(), bn, "channels-last"),
-             (odd, _card_bn(12, cuda, seed=0), "12 channels"),
-             (x.float(), bn, "only bf16"), (x.half(), bn, "only bf16")]
+             (odd, _card_bn(12, cuda, seed=0), "12 channels")]
     for t, norm, match in cases:
         with pytest.raises(ValueError, match=match):
             bn_relu.bn_relu(t, norm)
         with pytest.raises(ValueError, match=match):
             bn_relu.add_bn_relu(t, t, norm)
+    # fp32 and fp16 are the plain versions': equal to them, no launch
+    before = (_build.launches["bn_relu"], _build.launches["add_bn_relu"])
+    for t in (x.float(), x.half()):
+        assert torch.equal(bn_relu.bn_relu(t, bn),
+                           bn_relu.bn_relu_reference(t, bn))
+        for got, want in zip(bn_relu.add_bn_relu(t, t, bn),
+                             bn_relu.add_bn_relu_reference(t, t, bn)):
+            assert got.dtype == t.dtype and torch.equal(got, want)
+    assert (_build.launches["bn_relu"],
+            _build.launches["add_bn_relu"]) == before
 
 
 def _resnet_by_modules(model, x):
@@ -524,11 +533,11 @@ def test_resnet50_eval_fused_matches_the_modules(cuda, dtype, launches, tol):
     model = model.to(cuda)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (50, 346, 346, 3)).astype(np.float32)).to(cuda)
-    before = (bn_relu.bn_relu.launches, bn_relu.add_bn_relu.launches)
+    before = (_build.launches["bn_relu"], _build.launches["add_bn_relu"])
     got = harness.make_infer_fn(model)(x)
     torch.cuda.synchronize()
-    assert (bn_relu.bn_relu.launches - before[0],
-            bn_relu.add_bn_relu.launches - before[1]) == launches
+    assert (_build.launches["bn_relu"] - before[0],
+            _build.launches["add_bn_relu"] - before[1]) == launches
     with torch.inference_mode():
         want = _resnet_by_modules(model, x)
     scale = want.abs().max().item()
@@ -548,13 +557,12 @@ def test_lfm2_forward_counts_its_kernels(cuda):
                            "lfm2-8b-a1b.prefill4k.json")) as f:
         model = tenant.build(json.load(f), 0, cuda)
     x = torch.randn(1, 512, model.cfg.dim, device=cuda).to(torch.bfloat16)
-    counters = (lfm2.short_conv, moe.expert_apply, flash.flash_absorb,
-                swiglu.swiglu_gate)
-    before = [c.launches for c in counters]
+    counters = ("short_conv", "expert_apply", "flash_absorb", "swiglu_gate")
+    before = [_build.launches[c] for c in counters]
     logits = harness.make_infer_fn(model)(x)
     torch.cuda.synchronize()
-    assert [c.launches - b for c, b in zip(counters, before)] == [18, 22, 6,
-                                                                  24]
+    assert [_build.launches[c] - b for c, b in zip(counters, before)] == [
+        18, 22, 6, 24]
     assert logits.shape == (1, 65536) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
     del model
@@ -576,10 +584,10 @@ def test_lfm2_grouped_apply_matches_the_cpu_loop(cuda):
             p.normal_(0.0, fan_in ** -0.5, generator=g)
     h = torch.randn(4096, 2048, device=cuda, generator=g).to(torch.bfloat16)
     sel, gates = moe.route_sigmoid_topk(h, layer.router, layer.expert_bias, 4)
-    before = moe.expert_apply.launches
+    before = _build.launches["expert_apply"]
     with torch.inference_mode():
         got = moe.expert_apply(h, sel, gates, layer.w13, layer.w2)
-    assert moe.expert_apply.launches == before + 1
+    assert _build.launches["expert_apply"] == before + 1
     assert int(moe.expert_apply.last_counts.sum()) == 4096 * 4
     want = moe.expert_apply(h.cpu().float(), sel.cpu(), gates.cpu(),
                             layer.w13.cpu().float(), layer.w2.cpu().float())

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.monitor import dutyprobe as tprobe
 from k8s_device_plugin_tpu.monitor.dutyprobe import DutyProbe, PallasProbe
 
@@ -27,13 +28,13 @@ def test_chain_matches_pallas_probe(size, steps):
 
 
 def test_torch_probe_runs_on_cpu_without_launching_the_kernel():
-    before = tprobe.probe_chain.launches
+    before = _build.launches["probe_chain"]
     runner = tprobe.TorchProbe(size=32, steps=4, device="cpu")
     assert runner._x is None  # lazy: nothing built at construction
     elapsed = runner()
     assert elapsed > 0
     assert runner._x.shape == (32, 32)
-    assert tprobe.probe_chain.launches == before
+    assert _build.launches["probe_chain"] == before
 
 
 def test_torch_probe_calibrates_its_chain_length():

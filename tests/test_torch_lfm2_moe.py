@@ -15,7 +15,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from k8s_device_plugin_torch.workloads import flash, lfm2, moe, run
+from k8s_device_plugin_torch import _build
+from k8s_device_plugin_torch.workloads import lfm2, moe, run
 from torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgpu_bench import weights
 from vgpu_bench.counts import lfm2_moe as counts
@@ -124,12 +125,10 @@ def test_routed_alike_reads_the_port_and_the_control():
 
 def test_counters_count_only_the_card():
     model, _, cfg = port_and_weights(5)
-    for c in (lfm2.short_conv, moe.expert_apply, flash.flash_absorb):
-        c.launches = 0
+    _build.launches.clear()
     with torch.inference_mode():
         model(weights.inputs(cfg, 5, 0, 0, "cpu"))
-    assert (lfm2.short_conv.launches, moe.expert_apply.launches,
-            flash.flash_absorb.launches) == (0, 0, 0)
+    assert not _build.launches
     assert moe.largest_expert_load() >= 2 * 11 * TINY.top_k / TINY.experts
 
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.workloads import convert
 from k8s_device_plugin_torch.workloads import harness as th
 from k8s_device_plugin_torch.workloads import lstm as tlstm
@@ -95,9 +96,8 @@ def test_runner_runs_the_stock_layout_on_the_cpu(monkeypatch, capsys):
         return built[-1]
     trun_build = trun.build_model
     monkeypatch.setattr(trun, "build_model", build)
-    from k8s_device_plugin_torch.workloads.pallas_ops import lstm_cell
-    before = lstm_cell.launches
+    before = _build.launches["lstm_cell"]
     assert trun.main(["--model", "lstm", "--batch", "2", "--size", "8",
                       "--steps", "1", "--device", "cpu"]) == 0
     assert len(built) == 1 and not built[0].use_pallas
-    assert lstm_cell.launches == before
+    assert _build.launches["lstm_cell"] == before

@@ -15,6 +15,7 @@ import jax
 import pytest
 import torch
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch import bench as tbench
 from k8s_device_plugin_torch.entry import entry
 from k8s_device_plugin_torch.workloads import run as trun
@@ -63,8 +64,7 @@ def test_runner_prints_the_jax_runners_keys(monkeypatch, capsys):
 
 
 def _lstm_launches():
-    from k8s_device_plugin_torch.workloads.pallas_ops import lstm_cell
-    return lstm_cell.launches
+    return _build.launches["lstm_cell"]
 
 
 @pytest.mark.parametrize("model", ["resnet50", "resnet152"])
@@ -93,8 +93,7 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
     tiny = ["--model", "lm", "--mode", mode, "--batch", "2", "--size", "16",
             "--steps", "1"]
     want = _jax_lm_line(*tiny)
-    from k8s_device_plugin_torch.workloads.flash import flash_absorb
-    before = flash_absorb.launches
+    before = _build.launches["flash_absorb"]
     assert trun.main(tiny + ["--device", "cpu"]) == 0
     got = _last_json(capsys)
     assert sorted(got) == sorted(want)
@@ -104,7 +103,7 @@ def test_runner_runs_the_lm_with_the_jax_runners_keys(mode, monkeypatch,
     else:
         assert got["prompt"] == 16 and got["gen_tokens_per_s"] > 0
         assert got["prefill_s"] >= 0 and got["prefill_compile_s"] >= 0
-    assert flash_absorb.launches == before  # the CPU ran no kernel
+    assert _build.launches["flash_absorb"] == before  # the CPU ran no kernel
     assert trun.LM_CONFIG == jrun.LM_CONFIG
     assert trun.CASES["lm"] == jrun.CASES["lm"]
 
@@ -126,8 +125,7 @@ def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
         want = sorted(want)
     else:
         want = _jax_conv_model_keys("train")
-    from k8s_device_plugin_torch.workloads.flash import flash_absorb
-    before = (flash_absorb.launches, _lstm_launches())
+    before = (_build.launches["flash_absorb"], _lstm_launches())
     assert trun.main(tiny + ["--device", "cpu"]) == 0
     got = _last_json(capsys)
     assert sorted(got) == want
@@ -136,7 +134,7 @@ def test_runner_trains_with_the_jax_runners_keys(model, monkeypatch,
     assert got["items_per_s"] > 0
     if model == "lm":
         assert (got["seq"], got["sp"]) == (16, 1) and got["tokens_per_s"] > 0
-    assert (flash_absorb.launches, _lstm_launches()) == before
+    assert (_build.launches["flash_absorb"], _lstm_launches()) == before
     assert trun.CASES[model] == jrun.CASES[model]
 
 
@@ -154,8 +152,7 @@ def test_runner_runs_the_moe_lm_with_the_jax_runners_keys(mode, monkeypatch,
     want = _jax_lm_line(*tiny)
     with monkeypatch.context() as patch:
         patch.setattr(trun, "LM_CONFIG", JAX_KEYS_LM)
-        from k8s_device_plugin_torch.workloads.flash import flash_absorb
-        before = flash_absorb.launches
+        before = _build.launches["flash_absorb"]
         assert trun.main(tiny + ["--device", "cpu"]) == 0
         got = _last_json(capsys)
     assert sorted(got) == sorted(want)
@@ -167,7 +164,7 @@ def test_runner_runs_the_moe_lm_with_the_jax_runners_keys(mode, monkeypatch,
         assert (got["seq"], got["sp"]) == (want["seq"], want["sp"]) == (1024,
                                                                          1)
         assert got["tokens_per_s"] > 0
-    assert flash_absorb.launches == before
+    assert _build.launches["flash_absorb"] == before
     assert trun.CASES["moe-lm"] == jrun.CASES["moe-lm"]
     assert (trun.MOE_EXPERTS, trun.MOE_GROUP) == (8, 1024)
 
@@ -213,8 +210,7 @@ def test_runner_runs_vgg16_and_deeplab_with_the_jax_runners_keys(
     monkeypatch.delenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", raising=False)
     monkeypatch.delenv("VTPU_COMPILE_CACHE_DIR", raising=False)
     want = _jax_conv_model_keys(mode)
-    from k8s_device_plugin_torch.workloads.flash import flash_absorb
-    before = (flash_absorb.launches, _lstm_launches())
+    before = (_build.launches["flash_absorb"], _lstm_launches())
     assert trun.main(["--model", model, "--mode", mode, "--batch", "1",
                       "--size", "32", "--steps", "1", "--device",
                       "cpu"]) == 0
@@ -222,7 +218,7 @@ def test_runner_runs_vgg16_and_deeplab_with_the_jax_runners_keys(
     assert sorted(got) == want
     assert (got["model"], got["mode"], got["batch"]) == (model, mode, 1)
     assert got["items_per_s"] > 0
-    assert (flash_absorb.launches, _lstm_launches()) == before
+    assert (_build.launches["flash_absorb"], _lstm_launches()) == before
     assert trun.CASES[model] == jrun.CASES[model]
 
 

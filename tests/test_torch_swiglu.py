@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.workloads import lfm2, moe, swiglu
 from torch_support import one_torch_thread  # noqa: F401 (autouse)
 
@@ -50,9 +51,9 @@ def test_wrapper_takes_the_plain_chain_on_the_cpu(shape, dtype, gated):
     h13 = h13.view(*lead, 2 * hidden)
     g = _gate(h13.numel() // (2 * hidden), dtype, 1).view(lead) \
         if gated else None
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     got = swiglu.swiglu_gate(h13, g)
-    assert swiglu.swiglu_gate.launches == before
+    assert _build.launches["swiglu_gate"] == before
     want = _chain(h13, g)
     assert got.dtype == dtype and got.shape == (*lead, hidden)
     assert torch.equal(got, want)
@@ -91,9 +92,9 @@ def test_expert_apply_on_the_cpu_is_unchanged(dtype):
     w2 = (torch.randn(e, f, d, generator=g) / 4).to(dtype)
     sel, gates = moe.route_sigmoid_topk(h, torch.randn(d, e, generator=g),
                                         torch.zeros(e), k)
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     got = moe.expert_apply(h, sel, gates, w13, w2)
-    assert swiglu.swiglu_gate.launches == before
+    assert _build.launches["swiglu_gate"] == before
     assert torch.equal(got, _expert_apply_loop(h, sel, gates, w13, w2))
 
 
@@ -136,10 +137,10 @@ def test_lfm2_forward_on_the_cpu_is_unchanged(monkeypatch, dtype):
     model = _small_model(dtype)
     x = torch.randn(2, 9, SMALL.dim, generator=torch.Generator()
                     .manual_seed(1))
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     with torch.inference_mode():
         got = model(x)
-    assert swiglu.swiglu_gate.launches == before
+    assert _build.launches["swiglu_gate"] == before
     assert torch.equal(got, _forward_with_chain(monkeypatch, model, x))
 
 
@@ -166,10 +167,10 @@ CARD_CASES = [(65536, 1792, True), (16384, 7168, False),
 def test_kernel_is_bit_equal_to_the_chain(cuda, rows, hidden, gated):
     h13 = _h13(rows, hidden, torch.bfloat16, rows + hidden, cuda)
     g = _gate(rows, torch.bfloat16, 2, cuda) if gated else None
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     got = swiglu.swiglu_gate(h13, g)
     torch.cuda.synchronize()
-    assert swiglu.swiglu_gate.launches == before + 1
+    assert _build.launches["swiglu_gate"] == before + 1
     assert got.shape == (rows, hidden) and got.is_contiguous()
     assert torch.equal(got, _chain(h13, g))
 
@@ -184,11 +185,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
              (_h13(6, 32, torch.bfloat16, 0, cuda)[:, ::2], None,
               "contiguous"),
              (h13, g.float(), "gate"), (h13, g[:5], "gate")]
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     for t, gate, match in cases:
         with pytest.raises(ValueError, match=match):
             swiglu.swiglu_gate(t, gate)
-    assert swiglu.swiglu_gate.launches == before
+    assert _build.launches["swiglu_gate"] == before
 
 
 @pytest.mark.cuda
@@ -197,10 +198,10 @@ def test_small_lfm2_counts_one_launch_a_layer_and_is_bit_equal(
     model = _small_model(torch.bfloat16, cuda)
     x = torch.randn(2, 256, SMALL.dim, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(1))
-    before = swiglu.swiglu_gate.launches
+    before = _build.launches["swiglu_gate"]
     with torch.inference_mode():
         got = model(x)
     torch.cuda.synchronize()
-    assert swiglu.swiglu_gate.launches - before == len(SMALL.layer_types)
+    assert _build.launches["swiglu_gate"] - before == len(SMALL.layer_types)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, _forward_with_chain(monkeypatch, model, x))

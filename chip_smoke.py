@@ -20,7 +20,12 @@ Phases, one JSON line each; any failure exits non-zero:
    kind on a carried state, an odd T and a head dim of 16, each check
    naming the route that ran), and its time beside the plain version's,
    a library call's (where one exists) and the card's bound; for the
-   flash absorb also its mma.sync route and its rounded-P variant;
+   flash absorb also its mma.sync route and its rounded-P variant; K2's
+   sequence route at case 5.1 x 1024 steps and at the runner's 100 x 64
+   against a loop of the plain cell, and at case 5.1 against a loop of
+   per-step K2 launches (``kernel_lstm_sequence``: ms a call, us a step,
+   the plain loop's, the K2 loop's and cuDNN's LSTM's device time, and
+   the call's bound);
 4. gradients: the flash absorb's ``autograd.Function`` (K3 forward,
    recompute backward) against dense attention's gradients, in fp32, and
    in bf16 at the LM's train chunking and at the MoE LM's whole-sequence
@@ -32,7 +37,9 @@ Phases, one JSON line each; any failure exits non-zero:
    one (``used`` = reserve + context + device code), the same past the
    cap under ``VTPU_OVERSUBSCRIBE=1``, a K2 launch loop at core limit 50
    against 0 (the ratio in the duty band), K1, K2 and K3 under it against
-   their plain versions, the kill switch, and the module-memory charge
+   their plain versions, K2's sequence route charged as one launch of its
+   own length (``enforcement_sequence``), the kill switch, and the
+   module-memory charge
    (``enforcement_module``): the loads the shim saw and the bytes it
    charged by library, at each point of the main child and after a cuBLAS
    product beside cuBLAS's own allocations, against the free bytes the
@@ -49,7 +56,8 @@ Phases, one JSON line each; any failure exits non-zero:
    check (case 1.1 at core limit 0 and 50: the ratio in [0.35, 0.65]),
    all wrapped (``bench.measure``), and the share once more under the
    cooperative limiter, beside it;
-   LSTM case 5.1 inference through the runner; the long-context LM
+   LSTM case 5.1 inference through the runner (one launch of K2's
+   sequence route a call); the long-context LM
    (``LM_CONFIG``, batch 8 x 2048, bf16) through the runner in
    ``--mode infer`` (attention through the flash absorb) and in
    ``--mode decode`` (prompt 2048, 32 tokens a call); then ``--mode
@@ -123,6 +131,8 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 #: ai-benchmark case 5.1: batch 100, 300 features, 1024 hidden
 LSTM_CASE = (100, 300, 1024)
+#: case 5.1's time steps (the benchmark's sequence; the runner takes 64)
+LSTM_CASE_STEPS = 1024
 #: ResNet-V2-50's stages at case 1.1 (batch 50 @ 346: 87 x 87 after the
 #: root and the pool), (width, side): ``bn_relu`` runs at [50, width, side,
 #: side] (bn1, bn2; the stem's preact at stage 1's), ``add_bn_relu`` at
@@ -137,7 +147,7 @@ TRAIN_STEPS = {"lm": 3, "resnet50": 10, "resnet152": 5, "lstm": 5,
                "moe-lm": 3, "vgg16": 5, "deeplab": 3}
 #: calls per timed round of the MoE LM and the segmentation and VGG paths'
 #: inference (after 2 warm-up calls)
-INFER_STEPS = {"moe-lm": 5, "vgg16": 10, "deeplab": 5}
+INFER_STEPS = {"moe-lm": 5, "vgg16": 10, "deeplab": 5, "lstm": 50}
 
 
 def emit(phase: str, **fields) -> None:
@@ -417,6 +427,120 @@ def phase_lstm_kernel() -> dict:
          max_abs_err_fp32_small=err32, ms=ms, plain_ms=plain_ms,
          library_ms=library_ms, ms_over_library=ms / library_ms,
          share_of_bound=bound_s * 1e3 / ms, bound_ms=bound_s * 1e3,
+         bytes=nbytes, flops=flops, timing=timing, wall_ms=wall_ms)
+    return result
+
+
+def sequence_args(batch, steps, device="cuda", seed=0,
+                  features=LSTM_CASE[1], hidden=LSTM_CASE[2]):
+    """K2's sequence route's inputs in bf16 on ``device``: xs [T, B, F],
+    h0, c0, and the cell's weights at the classifier's scale (wh about
+    orthogonal in size), so 1024 steps stay in range. The card tests take
+    the same inputs."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def t(shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(device,
+                                                            torch.bfloat16)
+    return (t((steps, batch, features), 1.0), t((batch, hidden), 0.5),
+            t((batch, hidden), 1.0), t((features, 4 * hidden), 0.03),
+            t((hidden, 4 * hidden), hidden ** -0.5 / 2), t((4 * hidden,), 0.1))
+
+
+def _plain_sequence(xs, h0, c0, wx, wh, b):
+    """The plain version of K2's sequence route on the card's tensors: a
+    loop of ``lstm_cell_reference`` (fp32 products, h and c rounded to
+    bf16 each step)."""
+    from k8s_device_plugin_torch.workloads import pallas_ops
+    h, c = h0, c0
+    for x_t in xs:
+        h, c = pallas_ops.lstm_cell_reference(x_t, h, c, wx, wh, b)
+    return h, c
+
+
+def phase_lstm_sequence_kernel() -> dict:
+    """K2's sequence route against its plain version, a loop of
+    ``lstm_cell_reference`` on the same card tensors (h_T and c_T within
+    2e-2 of their largest magnitude, the bf16 cell's bound), at case 5.1 x
+    1024 steps and at the runner's 100 x 64; at case 5.1 also against a
+    loop of 1024 per-step K2 launches. Its time a call and a step beside
+    the plain loop's (``plain_ms``), the per-step K2 loop's, cuDNN's
+    multi-step LSTM's (``library_ms``: the same cell over the whole
+    sequence in one PyTorch call, which the port never calls) and the
+    call's bound (1024 steps' products at the bf16 peak: the weights are
+    read once a call)."""
+    import torch
+    from k8s_device_plugin_torch.workloads import pallas_ops
+    batch, features, hidden = LSTM_CASE
+    steps = LSTM_CASE_STEPS
+    runner = sequence_args(batch, 64, seed=7)
+    args = sequence_args(batch, steps, seed=5)
+    xs, h0, c0, wx, wh, b = args
+    if not pallas_ops.sequence_route(*args):
+        raise AssertionError("lstm_sequence: no sequence route at case 5.1")
+
+    def k2_loop():
+        h, c = h0, c0
+        for x_t in xs:
+            h, c = pallas_ops.lstm_cell(x_t, h, c, wx, wh, b)
+        return h, c
+
+    # yardstick only: cuDNN's LSTM over the whole sequence ([i|f|g|o]
+    # order, weights transposed, b_hh = 0)
+    library = torch.nn.LSTM(features, hidden).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        for name, w in (("weight_ih_l0", wx.t()), ("weight_hh_l0", wh.t()),
+                        ("bias_ih_l0", b), ("bias_hh_l0", torch.zeros_like(b))):
+            getattr(library, name).copy_(w)
+
+    def cudnn():
+        _, (h, c) = library(xs, (h0[None], c0[None]))
+        return h[0], c[0]
+    with torch.inference_mode():
+        err64 = max(err_of_largest(f"lstm_sequence 100 x 64 {name}", g, w,
+                                   2e-2)
+                    for name, g, w in zip("hc",
+                                          pallas_ops.lstm_sequence(*runner),
+                                          _plain_sequence(*runner)))
+        got = pallas_ops.lstm_sequence(*args)
+        err = max(err_of_largest(f"lstm_sequence {name}", g, w, 2e-2)
+                  for name, g, w in zip("hc", got, _plain_sequence(*args)))
+        err_k2 = max(err_of_largest(f"lstm_sequence vs K2 {name}", g, w,
+                                    2e-2)
+                     for name, g, w in zip("hc", got, k2_loop()))
+        library_err = max(max_abs_err(g, w) / w.float().abs().max().item()
+                          for g, w in zip(cudnn(), _plain_sequence(*args)))
+        padded = (pallas_ops._padded(xs)[0], *args[1:])
+        ms, timing = device_ms(lambda: pallas_ops.lstm_sequence(*padded), 20)
+        plain_ms, _ = device_ms(lambda: _plain_sequence(*args), 3)
+        loop_ms, _ = device_ms(k2_loop, 3)
+        library_ms, _ = device_ms(cudnn, 10)
+        wall_ms = cuda_ms(lambda: pallas_ops.lstm_sequence(*padded), 20)
+    flops = steps * 2 * batch * (features + hidden) * 4 * hidden
+    nbytes = 2 * (steps * batch * features + (features + hidden + 1) * 4
+                  * hidden + 4 * batch * hidden)
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+    result = {
+        "name": "lstm_sequence", "route": "cuda",
+        "kernel_route": "sequence",
+        "source": "k8s_device_plugin_torch/csrc/lstm_cell.cu",
+        "replaces": "k8s_device_plugin_tpu/workloads/pallas_ops.py:25 "
+                    "(a loop of its calls)",
+        "max_abs_err": err, "ms": ms, "kernel_ms": ms, "timing": timing,
+        "plain_ms": plain_ms, "per_step_loop_ms": loop_ms,
+        "bound_ms": bound_s * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / BF16_FLOPS else "operations"),
+        "library_ms": library_ms,
+    }
+    emit("kernel_lstm_sequence", shape=[steps, *LSTM_CASE], dtype="bfloat16",
+         err_of_largest=err, err_of_largest_100x64=err64,
+         err_of_largest_vs_per_step=err_k2, library_err_of_largest=library_err,
+         ms=ms, us_per_step=ms * 1e3 / steps, plain_ms=plain_ms,
+         per_step_loop_ms=loop_ms, loop_over_sequence=loop_ms / ms,
+         library_ms=library_ms, ms_over_library=ms / library_ms,
+         bound_ms=bound_s * 1e3, share_of_bound=bound_s * 1e3 / ms,
          bytes=nbytes, flops=flops, timing=timing, wall_ms=wall_ms)
     return result
 
@@ -894,6 +1018,8 @@ EAGER_CAP = 1 << 40
 EAGER_BAND = (0.5, 2.0)
 #: seconds each leg of the K2 duty loop is timed
 K2_LOOP_S = 1.0
+#: calls of K2's sequence route read one by one under the shim
+SEQUENCE_CHARGE_CALLS = 6
 
 
 def _kill_switch_child(cap: int) -> dict:
@@ -994,6 +1120,38 @@ def _k2_loop(region) -> dict:
             "drain_calls": drained,
             "tokens_after": region.data.duty_tokens_us[0], "launches": n,
             "seconds": seconds, "launches_per_s": n / seconds}
+
+
+def _sequence_charged() -> dict:
+    """K2's sequence route at case 5.1 x 1024 steps under the shim, one
+    call at a time: the launches the shim counted for each and the cost
+    it charged each (``shm/counters.py``), beside each call's device time
+    (CUDA events). The shim times one launch at a time and charges a
+    function at the mean of its timed runs, so after the first calls a
+    long launch is charged about its own length."""
+    import torch
+    from k8s_device_plugin_torch.shm import counters
+    from k8s_device_plugin_torch.workloads import pallas_ops
+    xs, *rest = sequence_args(LSTM_CASE[0], LSTM_CASE_STEPS, seed=6)
+    args = (pallas_ops._padded(xs)[0], *rest)
+    calls = []
+    with torch.inference_mode():
+        pallas_ops.lstm_sequence(*args)  # the barrier word, the build
+        torch.cuda.synchronize()
+        for _ in range(SEQUENCE_CHARGE_CALLS):
+            before = counters.counters(0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pallas_ops.lstm_sequence(*args)
+            end.record()
+            end.synchronize()
+            after = counters.counters(0)
+            calls.append({"us": start.elapsed_time(end) * 1e3,
+                          "launches": after["launches"] - before["launches"],
+                          "charged_us": (after["charged_us"]
+                                         - before["charged_us"])})
+    return {"calls": calls}
 
 
 def _kernel_inputs(dev) -> tuple:
@@ -1150,6 +1308,7 @@ def _enforcement_child(case: str) -> int:
         out["cublas"] = _cublas_product(region, dev)
     elif case == "capped":
         out["k2"] = _k2_loop(region)
+        out["sequence"] = _sequence_charged()
         out["fill"] = _fill(region, dev, ENFORCE_CAP // ENFORCE_CHUNK + 4)
     elif case == "eager":
         out["windows"] = _eager_windows(region, dev)
@@ -1272,6 +1431,15 @@ def phase_enforcement_card(card: str) -> dict:
         raise AssertionError(f"K2 duty under the shim: ratio {ratio} "
                              f"outside {bench.DUTY_BAND}")
 
+    seq = capped["sequence"]["calls"]
+    emit("enforcement_sequence", card=card, shape=[LSTM_CASE_STEPS,
+                                                   *LSTM_CASE], calls=seq)
+    # each call is one launch, and once timed, charged at least half its
+    # device time (the charge is the mean of timed runs of the function)
+    if not (all(c["launches"] == 1 for c in seq)
+            and seq[-1]["charged_us"] >= 0.5 * seq[-1]["us"]):
+        raise AssertionError(f"lstm_sequence under the shim: {seq}")
+
     fill, ctx = main["fill"], main["context_bytes"]
     gap = [u - (r + ctx + m)
            for r, u, m in zip(fill["reserved"], fill["used"], fill["module"])]
@@ -1389,10 +1557,11 @@ def _runner_line(argv) -> dict:
     return line
 
 
-#: the names read from ``_build.launches``: the six kernels', then LFM2's
-#: short convs and grouped expert applies
-COUNTED = ("probe_chain", "lstm_cell", "flash_absorb", "bn_relu",
-           "add_bn_relu", "swiglu_gate", "short_conv", "expert_apply")
+#: the names read from ``_build.launches``: the six kernels' and K2's
+#: sequence route, then LFM2's short convs and grouped expert applies
+COUNTED = ("probe_chain", "lstm_cell", "lstm_sequence", "flash_absorb",
+           "bn_relu", "add_bn_relu", "swiglu_gate", "short_conv",
+           "expert_apply")
 
 
 def _counting(by_path: dict):
@@ -1496,8 +1665,8 @@ def phase_main_path() -> dict:
         raise AssertionError(f"plain share: {plain['violations']} "
                              f"violations")
 
-    line = counted("lstm_case_5_1",
-                   lambda: _runner_line(["--model", "lstm"]))
+    line = counted("lstm_case_5_1", lambda: _runner_line(
+        ["--model", "lstm", "--steps", str(INFER_STEPS["lstm"])]))
     if not line["items_per_s"] > 0:
         raise AssertionError(f"lstm runner: {line}")
     emit("lstm_case_5_1", **line)
@@ -1557,11 +1726,16 @@ def phase_main_path() -> dict:
     _check_own_paths(by_path)
     # launches a call: the LM trains on 12 absorbs (3 per layer at
     # 1024-token chunks), the MoE LM on one whole-sequence absorb a layer
-    # to infer and to train; the LSTM one cell a time step; the runner
-    # makes 2 warm-up calls before its steps. Decode, VGG and DeepLab run
-    # no port kernel (cuDNN convolutions, as XLA owns them on the TPU).
+    # to infer and to train; the LSTM infers in one launch of K2's
+    # sequence route and trains on one per-step K2 a time step (autograd
+    # records); the runner makes 2 warm-up calls before its steps. Decode,
+    # VGG and DeepLab run no port kernel (cuDNN convolutions, as XLA owns
+    # them on the TPU).
     per_call = {("lm_train", "flash_absorb"): (12, TRAIN_STEPS["lm"]),
                 ("lstm_train", "lstm_cell"): (64, TRAIN_STEPS["lstm"]),
+                ("lstm_train", "lstm_sequence"): (0, 0),
+                ("lstm_case_5_1", "lstm_sequence"): (1, INFER_STEPS["lstm"]),
+                ("lstm_case_5_1", "lstm_cell"): (0, 0),
                 ("moe_lm_infer", "flash_absorb"): (4, INFER_STEPS["moe-lm"]),
                 ("moe_lm_train", "flash_absorb"): (4, TRAIN_STEPS["moe-lm"])}
     per_call.update({(path, name): (0, 0) for path in (
@@ -1582,7 +1756,8 @@ def phase_main_path() -> dict:
 def _check_own_paths(by_path: dict) -> None:
     """Each kernel must have run on every path that carries it."""
     own = {"probe_chain": ["resnet50_share"],
-           "lstm_cell": ["lstm_case_5_1", "lstm_train"],
+           "lstm_cell": ["lstm_train"],
+           "lstm_sequence": ["lstm_case_5_1"],
            "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
                             "moe_lm_train", "multichip_ring_flash",
                             "multichip_moe_lm_ring_flash"],
@@ -2781,6 +2956,7 @@ def main() -> int:
     phase_compile_cache()
     kernels = {"probe_chain": phase_probe_kernel(),
                "lstm_cell": phase_lstm_kernel(),
+               "lstm_sequence": phase_lstm_sequence_kernel(),
                "flash_absorb": phase_flash_kernel(),
                **phase_bn_relu_kernel(), **phase_swiglu_kernel()}
     attention = phase_flash_grad()

@@ -10,7 +10,8 @@ builds it. :func:`set_build_dir` moves the libraries elsewhere (the compile
 cache, ``workloads/harness.setup_compile_cache``) before the first load.
 A :class:`Kernel` is the one way the wrappers launch a C entry: it loads
 the library, passes the current stream, raises on an error and counts the
-launch in :data:`launches`.
+launch in :data:`launches`; :func:`query` calls an entry that launches
+nothing.
 
 The host libraries (``csrc/*.c``, :data:`HOST_LIBRARIES`: the enforcement
 shim, the shared region's primitives, the mock driver) build the same way
@@ -210,6 +211,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.vtpu_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def query(library: str, entry: str, argtypes: list, *args) -> None:
+    """Call the C entry ``entry`` of ``csrc/<library>.cu`` that launches
+    nothing (a question about the device, answered through pointer
+    arguments): loads the library, passes no stream, raises through
+    :func:`check` and counts nothing."""
+    lib = _library(library)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    check(lib, fn(*args), entry)
 
 
 def _stream(on) -> int:

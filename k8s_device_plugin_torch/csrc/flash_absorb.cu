@@ -618,38 +618,12 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found through the runtime (no link
-// against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
 // 4-D map over a bf16 [batch][len][heads][D] input with element strides
 // st, boxes of `rows` rows of one head, 128-byte swizzled; rows past len
 // read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, const Strides& st,
               int batch, int len, int heads, int rows) {
-  EncodeTiled encode = encode_tiled();
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
                               cuuint64_t(len), cuuint64_t(batch)};

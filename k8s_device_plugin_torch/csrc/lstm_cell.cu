@@ -41,6 +41,8 @@
 // loads staged through shared memory, mma.sync.
 // fp32: plain FMA on the CUDA cores (tensor cores would round to TF32),
 // 64 rows x 16 columns per block, each thread 8 rows of one column.
+// A fourth entry, vtpu_lstm_sequence, runs a whole bf16 sequence in one
+// persistent launch (the note above namespace seq).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -474,6 +476,427 @@ lstm_cell_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
 
 }  // namespace ring
 
+// ------------------------------- bf16 sequence: one persistent launch
+//
+// Replaces the classifier's loop of T launches of the ring route (the
+// Pallas kernel's per-step calls, _lstm_cell_kernel in a loop) with one
+// launch that runs all T steps. What bounds the loop: at case 5.1 each
+// launch fetches the 10.8 MB of Wx and Wh anew into 128 blocks, fills its
+// ring and exits, about 16 us a step against 3.5 by bytes; the step is
+// bound by latency, not bandwidth. Here each block loads its slice of the
+// weights into shared memory once and keeps it for every step, so a step
+// moves only h_t (200 KB, read from L2 by every block pair: 12.8 MB) and
+// x_t (60 KB); the call's lower bound is its products, 1.12 ms at case
+// 5.1 (T x 1.0846 GFLOP at 989 TFLOP/s). What bounds it instead is a
+// step's chain of latencies: the grid barrier, L2's delivery of h_t to
+// 128 SMs at once, the partial sums' exchange and the gate math.
+//
+// Layout, as the ring route's: a cluster of two blocks owns 16 hidden
+// columns of each gate slab (128 blocks at H = 1024, one an SM) and up to
+// 128 rows (two m64 slabs, one a consumer warpgroup), and splits the K
+// loop: rank r takes half r of x's 64-wide K tiles and half r of h's. Each
+// rank keeps its halves of Wx and Wh for the pair's 64 gate columns (88
+// KB at case 5.1, swizzled as wgmma reads them) in shared memory, beside
+// one slot a h tile (up to 8: H <= 1024; B rounded up to 8 rows each).
+// A producer warp does the waiting and the loads; per step t:
+//  - producer: once its consumers have stored their slice of h_t, the
+//    grid barrier; then TMA loads of all of this rank's h_t tiles at once
+//    (each pair starts at another tile, so that L2 is not asked for the
+//    same lines by every SM together), and once the consumers have read
+//    them, x_{t+1}'s tiles into the first slots (x_{t+2} goes to L2 ahead);
+//  - consumers: the accumulator already holds x_t . Wx; wgmma adds
+//    h_t . Wh tile by tile as the tiles land; rank r sends the peer the
+//    half of the partial sums that the peer finishes (st.async into its
+//    shared memory, counted on its mbarrier) and adds the peer's half for
+//    its own 8 columns; the gate math in registers (c stays there,
+//    rounded to bf16 each step as the ring route writes it); h_{t+1} to
+//    one of two [B, H] buffers in turn (L2-resident); then x_{t+1} . Wx,
+//    while the producer waits at the grid barrier: it does not depend on
+//    h.
+// The grid barrier is one word, the arrival count of cooperative groups'
+// grid sync: block 0 adds 2^31 - (blocks - 1), the others 1, so bit 31
+// flips when the last block arrives and the low bits return to 0; a
+// waiter spins on an acquire load until the bit differs from the word it
+// saw at its arrival (a wait of 10 s traps). The word is zeroed once and
+// serves every launch on its stream. The blocks wait on each other, so
+// all must be resident at once: the wrapper takes this route only where
+// the occupancy queries, asked with the launch's attributes, say the
+// whole grid fits (vtpu_lstm_sequence_resident), and the launch is
+// cooperative. The same
+// products and the same bf16 rounding of h and c each step as the ring
+// route: the two differ only in the order of the fp32 sums. x's rows are
+// read through TMA, so the wrapper lays xs out with rows a multiple of 16
+// bytes apart. Rows past B read as zeros (TMA) or as whatever a slot
+// holds past them (a warpgroup reads 64 rows); a row's products depend on
+// that row alone, and rows past B are never stored. A warpgroup with no
+// row inside B skips its products.
+
+namespace seq {
+
+using ring::BK;
+using ring::ROW;
+using ring::desc;
+using ring::sw;
+
+constexpr int BJ = 16;         // hidden columns per block pair, per gate
+constexpr int NT = 256;        // consumers: 2 warpgroups, one m64 slab each
+constexpr int MAX_ROWS = 128;
+constexpr int MAX_TILES = 8;   // h tiles a rank holds at once (H <= 1024)
+constexpr int W_BYTES = BK * ROW;  // 8 KB: 64 k x 64 gate columns
+// the partner's half of the sums; it also lies after the last slot, where
+// a warpgroup's 64-row reads past the batch run on
+constexpr int PART = NT * 4 * 16;
+// an H100 block's opt-in maximum (232,448 bytes) less room for the static
+// barriers
+constexpr int SMEM_MAX = 231424;
+
+__host__ __device__ constexpr int tiles(int depth) {
+  return (depth + BK - 1) / BK;
+}
+
+// K tiles of each rank's half: rank 0 takes the first (n + 1) / 2
+__host__ __device__ constexpr int first_half(int depth) {
+  return (tiles(depth) + 1) / 2;
+}
+
+// rows of a slot: the batch in whole 8-row swizzle atoms
+__host__ __device__ constexpr int slot_rows(int rows) {
+  return (rows + 7) / 8 * 8;
+}
+
+// bytes of dynamic shared memory a block asks for (rank 0's halves, the
+// larger): Wh's tiles, Wx's, one slot a h tile (x's tiles use the first
+// slots between steps), the partner's sums; 2^30 where a rank would hold
+// more h tiles than MAX_TILES or more x tiles than h tiles
+__host__ __device__ constexpr int smem_bytes(int rows, int features,
+                                             int hidden) {
+  return first_half(hidden) > MAX_TILES
+                 || first_half(features) > first_half(hidden)
+             ? 1 << 30
+             : 1024 + (first_half(features) + first_half(hidden)) * W_BYTES
+                   + first_half(hidden) * slot_rows(rows) * ROW + PART;
+}
+
+// K tile k0 of W [depth][4H], the pair's columns q*H + j0 .. +15 of each
+// gate q side by side in a 128-byte row, into a swizzled tile at dst
+__device__ __forceinline__ void load_cols(const bits* __restrict__ w,
+                                          int depth, int hidden, int j0,
+                                          int k0, uint32_t dst) {
+  for (int e = threadIdx.x; e < BK * 8; e += blockDim.x) {
+    const int kk = e / 8, c = e % 8, k = k0 + kk;
+    const bool in = k < depth;
+    const bits* src = in ? w + static_cast<size_t>(k) * 4 * hidden
+                             + static_cast<size_t>(c / 2) * hidden + j0
+                             + (c % 2) * 8
+                         : w;
+    sm90::cp_async<16>(dst + sw(kk, c), src, in ? 16 : 0);
+  }
+}
+
+// acc = x_t . Wx over this rank's n tiles (A's `pitch` bytes apart at a,
+// this warpgroup's rows; W's at w), once x_t's tiles have landed (phase
+// `parity` of mbarrier xbar)
+__device__ __forceinline__ void x_product(float (&acc)[32], uint32_t a,
+                                          uint32_t pitch, uint32_t w, int n,
+                                          uint32_t xbar, uint32_t parity,
+                                          bool live) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  if (!live) return;
+  sm90::mbar_wait(xbar, parity);
+  sm90::wgmma_fence();
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int s = 0; s < BK / 16; ++s)
+      sm90::wgmma_ss<1>(acc, desc(a + i * pitch + 32 * s),
+                        desc(w + i * W_BYTES + 16 * s * ROW), 1);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::reg_fence(acc);
+}
+
+// one arrival of this warp on mbarrier bar, once all its threads are here
+// (and their earlier memory accesses ordered before it)
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(bar);
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+// a block that waits this long for its peers traps: the launch fails with
+// an error instead of holding the card
+constexpr uint64_t WAIT_NS = 10000000000ull;
+
+// (one thread a block) arrives at the grid barrier after everything this
+// block stored that the thread has observed, and returns once every block
+// has arrived: bit 31 of the word has flipped
+__device__ __forceinline__ void grid_sync(uint32_t* bar) {
+  const uint32_t add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+  const uint32_t old = sm90::atom_add_release_gpu(bar, add);
+  const uint64_t since = global_ns();
+  while (((sm90::ld_acquire_gpu(bar) ^ old) & 0x80000000u) == 0)
+    if (global_ns() - since > WAIT_NS) __trap();
+}
+
+__global__ void __launch_bounds__(NT + 32, 1)
+lstm_cell_seq_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap h0_map,
+                     const __grid_constant__ CUtensorMap h_map,
+                     const bits* __restrict__ xs, int ld,
+                     const bits* __restrict__ c0,
+                     const bits* __restrict__ wx, const bits* __restrict__ wh,
+                     const bits* __restrict__ b, bits* __restrict__ hbuf,
+                     bits* __restrict__ c_out, uint32_t* __restrict__ bar,
+                     int steps, int rows, int features, int hidden) {
+  namespace cg = cooperative_groups;
+  extern __shared__ uint8_t raw[];
+  // mbarriers, each completing once a step: h tile i's (full + 8 i), the
+  // peer's sums, x's tiles; and the consumer warps' "x's product has read
+  // the slots", "h's products have", "h_{t+1} is stored"
+  __shared__ __align__(8) uint64_t bars[MAX_TILES + 5];
+  uint8_t* smem = raw + ((1024 - sm90::smem_u32(raw) % 1024) % 1024);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int pair = blockIdx.x / 2, j0 = pair * BJ;
+  // this rank's K tiles: x's from x_first, h's from h_first
+  const int x0 = first_half(features), h0n = first_half(hidden);
+  const int x_first = rank ? x0 : 0, h_first = rank ? h0n : 0;
+  const int nx = rank ? tiles(features) - x0 : x0;
+  const int nh = rank ? tiles(hidden) - h0n : h0n;
+  // the pairs take their h tiles in turns from different starts, so that
+  // they do not all ask L2 for the same lines at once
+  const int rot = nh ? pair % nh : 0;
+  // shared memory: Wh's tiles, Wx's, the slots (h_t's tiles during a
+  // step, x_{t+1}'s in the first between steps), the partner's sums
+  const uint32_t slot = slot_rows(rows) * ROW;
+  const uint32_t base = sm90::smem_u32(smem);
+  const uint32_t whs = base, wxs = whs + h0n * W_BYTES;
+  const uint32_t slots = wxs + x0 * W_BYTES;
+  float4* part =
+      reinterpret_cast<float4*>(smem + (slots - base) + h0n * slot);
+  const uint32_t full = sm90::smem_u32(bars);
+  const uint32_t sums = full + 8 * MAX_TILES, xbar = sums + 8;
+  const uint32_t xdone = xbar + 8, freed = xdone + 8, stored = freed + 8;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < MAX_TILES + 2; ++i) sm90::mbar_init(full + 8 * i, 1);
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(xdone + 8 * i, NT / 32);
+    sm90::mbar_fence_init();
+  }
+  for (int i = 0; i < nh; ++i)
+    load_cols(wh, hidden, hidden, j0, (h_first + i) * BK, whs + i * W_BYTES);
+  for (int i = 0; i < nx; ++i)
+    load_cols(wx, features, hidden, j0, (x_first + i) * BK, wxs + i * W_BYTES);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();  // the weights
+  sm90::fence_proxy_async();
+  // both blocks' barriers are set up before either writes to the other's
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+
+  if (threadIdx.x >= NT) {
+    // the producer warp (one thread): the grid barrier and every TMA load,
+    // so that the consumers' x product runs while it waits
+    if (threadIdx.x == NT) {
+      auto load_x = [&](int t) {  // x_t's tiles of this rank, first slots
+        sm90::mbar_expect_tx(xbar, nx * slot);
+        for (int i = 0; i < nx; ++i)
+          sm90::tma_load_3d(slots + i * slot, &x_map, xbar,
+                            (x_first + i) * BK, 0, t);
+      };
+      auto prefetch_x = [&](int t) {  // x_t into L2, two steps ahead
+        if (blockIdx.x == 0 && t < steps)
+          sm90::prefetch_l2(xs + static_cast<size_t>(t) * rows * ld,
+                            2u * rows * ld);
+      };
+      load_x(0);
+      prefetch_x(1);
+      for (int t = 0; t < steps; ++t) {
+        if (t > 0) {
+          sm90::mbar_wait(stored, (t - 1) & 1);  // this block's h_t
+          grid_sync(bar);  // every block's
+          sm90::fence_proxy_async_global();
+        }
+        prefetch_x(t + 2);
+        sm90::mbar_wait(xdone, t & 1);  // the slots are free
+        sm90::mbar_expect_tx(sums, PART);
+        for (int i = 0; i < nh; ++i) {
+          sm90::mbar_expect_tx(full + 8 * i, slot);
+          sm90::tma_load_3d(slots + i * slot, t ? &h_map : &h0_map,
+                            full + 8 * i, (h_first + (i + rot) % nh) * BK,
+                            0, t ? t & 1 : 0);
+        }
+        if (t + 1 < steps) {
+          sm90::mbar_wait(freed, t & 1);
+          load_x(t + 1);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // the consumers: two warpgroups, this thread's (row, column)s rows
+    // 64 group + 16 warp + g (+ 8) and columns j0 + 8 rank + 2 tig (+ 1);
+    // e indexes them as the accumulator
+    const int group = threadIdx.x / 128, lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32, g = lane / 4, tig = lane % 4;
+    const int m_base = 64 * group + 16 * warp + g;
+    const int j = j0 + 8 * rank + 2 * tig;
+    const bool live = 64 * group < rows;  // any of this warpgroup's rows
+    const uint32_t rows_at = 64 * group * ROW;
+    const uint32_t peer_part = sm90::mapa(sm90::smem_u32(part), rank ^ 1);
+    const uint32_t peer_sums = sm90::mapa(sums, rank ^ 1);
+    float bias[4][2], c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) bias[q][e] = bf(b[q * hidden + j + e]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m_base + 8 * (e / 2);
+      c[e] = m < rows ? bf(c0[static_cast<size_t>(m) * hidden + j + e % 2])
+                      : 0.f;
+    }
+
+    float acc[32];
+    x_product(acc, slots + rows_at, slot, wxs, nx, xbar, 0, live);
+    warp_arrive(xdone);
+    const size_t plane = static_cast<size_t>(rows) * hidden;
+    for (int t = 0; t < steps; ++t) {
+      const uint32_t parity = t & 1;
+      // acc (= x_t . Wx) += h_t . Wh over this rank's K half
+      if (live) {
+        sm90::wgmma_fence();
+        for (int i = 0; i < nh; ++i) {
+          const uint32_t w = whs + ((i + rot) % nh) * W_BYTES;
+          const uint32_t a = slots + i * slot + rows_at;
+          sm90::mbar_wait(full + 8 * i, parity);
+#pragma unroll
+          for (int s = 0; s < BK / 16; ++s)
+            sm90::wgmma_ss<1>(acc, desc(a + 32 * s), desc(w + 16 * s * ROW),
+                              1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::reg_fence(acc);
+      }
+      warp_arrive(freed);
+
+      // rank r finishes half r of the columns (accumulator elements
+      // 8q + 4r + e): it sends the other half to the peer, adds the peer's
+      float gate[4][4], give[4][4];  // (selects: no register is indexed)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lo = acc[8 * q + e], hi = acc[8 * q + 4 + e];
+          gate[q][e] = rank ? hi : lo;
+          give[q][e] = rank ? lo : hi;
+        }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sm90::st_async(peer_part + 16 * (q * NT + threadIdx.x),
+                       make_float4(give[q][0], give[q][1], give[q][2],
+                                   give[q][3]),
+                       peer_sums);
+      sm90::mbar_wait(sums, parity);  // the peer's half has landed here
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 p = part[q * NT + threadIdx.x];
+        gate[q][0] += p.x;
+        gate[q][1] += p.y;
+        gate[q][2] += p.z;
+        gate[q][3] += p.w;
+      }
+
+      const bool last = t + 1 == steps;
+      bits* h_next = hbuf + ((t + 1) & 1) * plane;
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int m = m_base + 8 * (e / 2);
+        float hn[2], cn[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          finish(gate[0][e + k] + bias[0][k], gate[1][e + k] + bias[1][k],
+                 gate[2][e + k] + bias[2][k], gate[3][e + k] + bias[3][k],
+                 c[e + k], hn[k], cn[k]);
+          c[e + k] = __bfloat162float(__float2bfloat16(cn[k]));
+        }
+        if (m >= rows) continue;
+        const size_t idx = static_cast<size_t>(m) * hidden + j;
+        *reinterpret_cast<uint32_t*>(h_next + idx) =
+            sm90::pack(hn[0], hn[1]);
+        if (last)
+          *reinterpret_cast<uint32_t*>(c_out + idx) =
+              sm90::pack(cn[0], cn[1]);
+      }
+      if (!last) {
+        warp_arrive(stored);
+        // x_{t+1} . Wx while the producer waits for the other blocks
+        x_product(acc, slots + rows_at, slot, wxs, nx, xbar, (t + 1) & 1,
+                  live);
+        warp_arrive(xdone);
+      }
+    }
+  }
+  // neither block leaves while the other may still write to it
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+}
+
+// 3-D map over `planes` bf16 [rows][cols] planes at ptr, rows `ld`
+// elements apart: boxes of 64 columns by slot_rows(rows) rows of one
+// plane, 128-byte swizzled; rows past the batch and columns past cols
+// read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int planes, int rows,
+              int cols, int ld) {
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(planes)};
+  const cuuint64_t strides[2] = {cuuint64_t(ld) * 2,
+                                 cuuint64_t(rows) * ld * 2};
+  const cuuint32_t box[3] = {BK, cuuint32_t(slot_rows(rows)), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the cooperative launch (attrs[1]) of the grid for `hidden` in clusters
+// of 2 (attrs[0]) with `smem` bytes of shared memory a block; the
+// residency question asks with the same attributes
+cudaLaunchConfig_t launch_config(int hidden, int smem,
+                                 cudaLaunchAttribute (&attrs)[2]) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(2 * (hidden / BJ));
+  config.blockDim = dim3(NT + 32);
+  config.dynamicSmemBytes = smem;
+  config.attrs = attrs;
+  config.numAttrs = 2;
+  return config;
+}
+
+// lets the kernel ask for up to SMEM_MAX bytes (once)
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lstm_cell_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_MAX);
+  return attr;
+}
+
+}  // namespace seq
+
 }  // namespace
 
 extern "C" {
@@ -526,6 +949,90 @@ int vtpu_lstm_cell(int route, const void* x, const void* h, const void* c,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the sequence route's grid (hidden / 8 blocks in clusters of 2,
+// seq::smem_bytes of shared memory each) is resident all at once on the
+// current device: *resident = 1 where cudaOccupancyMaxActiveClusters,
+// asked with the launch's own attributes (cooperative included), counts
+// every cluster and the blocks a multiprocessor holds times the
+// multiprocessors count every block (the cooperative launch's own limit);
+// 0 where either falls short or the shared memory does not fit. On an
+// H100 the first answer agrees with the cooperative launch at clusters of
+// 1, 2, 4 and 8 (30 clusters of 4 resident where 32 are asked: refused
+// with cudaErrorCooperativeLaunchTooLarge). Launches nothing. Returns the
+// CUDA error of the queries (0 on success).
+int vtpu_lstm_sequence_resident(int rows, int features, int hidden,
+                                int* resident) {
+  *resident = 0;
+  if (rows <= 0 || rows > seq::MAX_ROWS || features <= 0 || hidden <= 0
+      || features % 4 || hidden % seq::BJ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = seq::smem_bytes(rows, features, hidden);
+  if (smem > seq::SMEM_MAX) return 0;
+  const cudaError_t attr = seq::allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t config = seq::launch_config(hidden, smem, attrs);
+  int clusters = 0, per_sm = 0, device = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &clusters, seq::lstm_cell_seq_kernel, &config);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, seq::lstm_cell_seq_kernel, config.blockDim.x, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *resident = clusters >= hidden / seq::BJ
+              && per_sm * sms >= static_cast<int>(config.gridDim.x);
+  return 0;
+}
+
+// The whole sequence in one cooperative launch: xs [steps][rows][features]
+// with rows ld elements apart (ld % 8 == 0, ld >= features);
+// h0, c0, c_out [rows][hidden]; hbuf [2][rows][hidden], whose plane
+// steps % 2 holds h after the last step; wx, wh, b as vtpu_lstm_cell's;
+// bar: one zeroed word, reused by every launch on this stream. Needs
+// 1 <= rows <= 128, F % 4 == 0, H % 16 == 0, xs, h0, wx, wh and hbuf
+// 16-byte aligned, and vtpu_lstm_sequence_resident's yes for this
+// shape. Returns the CUDA error of the launch (0 on success).
+int vtpu_lstm_sequence(const void* xs, int ld, const void* h0, const void* c0,
+                       const void* wx, const void* wh, const void* b,
+                       void* hbuf, void* c_out, void* bar, int steps,
+                       int rows, int features, int hidden, void* stream) {
+  auto aligned = [](const void* p, uintptr_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (steps <= 0 || rows <= 0 || rows > seq::MAX_ROWS || features <= 0
+      || hidden <= 0 || features % 4 || hidden % seq::BJ
+      || seq::smem_bytes(rows, features, hidden) > seq::SMEM_MAX
+      || ld % 8 || ld < features || !aligned(xs, 16) || !aligned(h0, 16)
+      || !aligned(wx, 16) || !aligned(wh, 16) || !aligned(hbuf, 16)
+      || !aligned(bar, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, h0_map, h_map;
+  if (!seq::make_map(&x_map, xs, steps, rows, features, ld)
+      || !seq::make_map(&h0_map, h0, 1, rows, hidden, hidden)
+      || !seq::make_map(&h_map, hbuf, 2, rows, hidden, hidden))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = seq::allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t config = seq::launch_config(
+      hidden, seq::smem_bytes(rows, features, hidden), attrs);
+  config.stream = static_cast<cudaStream_t>(stream);
+  using T = bits;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, seq::lstm_cell_seq_kernel, x_map, h0_map, h_map,
+      static_cast<const T*>(xs), ld, static_cast<const T*>(c0),
+      static_cast<const T*>(wx), static_cast<const T*>(wh),
+      static_cast<const T*>(b), static_cast<T*>(hbuf),
+      static_cast<T*>(c_out), static_cast<uint32_t*>(bar), steps, rows,
+      features, hidden);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

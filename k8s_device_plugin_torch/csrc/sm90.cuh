@@ -1,8 +1,12 @@
 // PTX building blocks for the port's Hopper kernels (sm_90a): mbarriers,
-// TMA tensor loads, wgmma with shared-memory descriptors, cp.async with
-// zero fill and mma.sync. Thin wrappers, one instruction each.
+// cluster barriers and gpu-scope acquire and release, TMA tensor loads and
+// L2 prefetch, distributed shared memory (mapa, st.async), wgmma with
+// shared-memory descriptors, cp.async with zero fill and mma.sync. Thin
+// wrappers, one instruction each; and, for the host, the driver's tensor
+// map encoder.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,6 +69,35 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ------------------------------------------------- cluster and grid sync
+
+// the split cluster barrier: every thread of the cluster arrives, then
+// waits; writes before the arrive (to this or a peer block's shared
+// memory) are visible after the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// *p += v at gpu scope, after this thread's earlier writes (and those it
+// has observed) are visible there; returns the old *p
+__device__ __forceinline__ uint32_t atom_add_release_gpu(uint32_t* p,
+                                                         uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ uint32_t ld_acquire_gpu(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
 // ------------------------------------------------------------------ TMA
 
 // box at coordinates (c0 innermost .. c3) of a 4-D tensor map into shared
@@ -77,6 +110,49 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// box at coordinates (c0 innermost, c1, c2) of a 3-D tensor map, as
+// tma_load_4d
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+        "r"(c1), "r"(c2) : "memory");
+}
+
+// asks L2 to fetch `bytes` (a multiple of 16) at the 16-byte aligned src
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               ::"l"(src), "r"(bytes) : "memory");
+}
+
+// orders this thread's earlier global accesses of the generic proxy (and
+// those it has observed) before its later ones of the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// the address of shared-memory address `addr` in cluster block `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes to a cluster block's shared memory at `addr` (from mapa),
+// counted as transaction bytes on that block's mbarrier `bar` (from mapa)
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -195,6 +271,34 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ----------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (no link
+// against libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace sm90

@@ -7,7 +7,11 @@ layouts, over a Python loop on time:
 * ``use_pallas=True`` (the JAX ``PallasLSTMCell``, the port's default):
   one parameter set (``cell.wx`` [F, 4H], ``cell.wh`` [H, 4H], ``cell.b``
   [4H], in ``dtype``) drives the fused cell (:func:`pallas_ops.lstm_cell`,
-  K2 on the card), and the fp32 ``head`` reads the last hidden state;
+  K2 on the card), and the fp32 ``head`` reads the last hidden state.
+  Where :func:`pallas_ops.sequence_route` allows (a bf16 forward on the
+  card that autograd does not record, B <= 128), the whole sequence is
+  one launch of K2's persistent route (:func:`pallas_ops.sequence_launch`,
+  the launch of :func:`pallas_ops.lstm_sequence`) in place of the loop;
 * ``use_pallas=False`` (Flax's stock ``nn.OptimizedLSTMCell`` under
   ``nn.RNN``): input kernels ``ii``/``if``/``ig``/``io`` [F, H] without
   bias and hidden kernels ``hi``/``hf``/``hg``/``ho`` [H, H] with bias,
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .pallas_ops import lstm_cell
+from .pallas_ops import lstm_cell, sequence_launch, sequence_route
 
 
 class LSTMCell(nn.Module):
@@ -132,18 +136,23 @@ class LSTMClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [batch, time, features] -> logits [batch, num_classes] fp32."""
-        # time-major once, so every step's slice is contiguous
-        xs = x.to(self.dtype).transpose(0, 1).contiguous()
+        # time-major; the loops copy it once so that every step's slice
+        # is contiguous, the sequence route lays it out for itself
+        xs = x.to(self.dtype).transpose(0, 1)
         if not self.use_pallas:
             cell = getattr(self, STOCK_CELL)
             kernels = cell.kernels()
             c = h = torch.zeros(x.shape[0], self.hidden, device=x.device)
-            for x_t in xs:
+            for x_t in xs.contiguous():
                 c, h = cell(c, h, x_t, kernels)
             return self.head(h.float())
         h = torch.zeros(x.shape[0], self.hidden, dtype=self.dtype,
                         device=x.device)
         c = h
-        for x_t in xs:
-            h, c = self.cell(h, c, x_t)
+        args = (xs, h, c, self.cell.wx, self.cell.wh, self.cell.b)
+        if sequence_route(*args):  # one launch for all T steps
+            h, _ = sequence_launch(*args)
+        else:
+            for x_t in xs.contiguous():
+                h, c = self.cell(h, c, x_t)
         return self.head(h.float())

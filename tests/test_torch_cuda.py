@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.monitor import dutyprobe
 from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
@@ -100,6 +101,122 @@ def test_lstm_classifier_on_the_card_matches_the_cpu(cuda):
     want = harness.make_infer_fn(model)(x)
     got = harness.make_infer_fn(model.to(cuda))(x.to(cuda)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _of_largest(got, want) -> float:
+    """max |got - want| over max |want|, after checking got's kind."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("steps", [1, 2, 64, 1024])
+@pytest.mark.parametrize("batch", [100, 37, 10])
+def test_lstm_sequence_matches_the_per_step_kernel(cuda, batch, steps):
+    """K2's sequence route (one launch) against a loop of per-step K2
+    launches on the same inputs and against a loop of the plain cell
+    (``lstm_cell_reference``, fp32 products) on them: h_T and c_T within
+    2e-2 of their largest magnitude, the bf16 cell tests' bound."""
+    xs, h0, c0, wx, wh, b = chip_smoke.sequence_args(batch, steps, cuda,
+                                                     seed=batch + steps)
+    with torch.inference_mode():
+        assert pallas_ops.sequence_route(xs, h0, c0, wx, wh, b)
+        before = dict(_build.launches)
+        got = pallas_ops.lstm_sequence(xs, h0, c0, wx, wh, b)
+        torch.cuda.synchronize()
+        assert _build.launches["lstm_sequence"] == \
+            before.get("lstm_sequence", 0) + 1
+        assert _build.launches["lstm_cell"] == before.get("lstm_cell", 0)
+        h, c = h0, c0
+        for x_t in xs:
+            h, c = pallas_ops.lstm_cell(x_t, h, c, wx, wh, b)
+        plain = chip_smoke._plain_sequence(xs, h0, c0, wx, wh, b)
+    for g, k2, want in zip(got, (h, c), plain):
+        assert _of_largest(g, k2) <= 2e-2
+        assert _of_largest(g, want) <= 2e-2
+
+
+def test_lstm_sequence_launches_wherever_its_grid_is_resident(cuda):
+    """The residency answer, asked with the launch's own attributes, is
+    a promise: every shape it says yes to launches (one step, no error),
+    and a shape whose weights do not fit in shared memory is refused."""
+    from k8s_device_plugin_torch.workloads.pallas_ops import _resident
+    yes = []
+    for batch, features, hidden in ((1, 4, 16), (100, 300, 1024),
+                                    (128, 300, 1024), (128, 1024, 1024),
+                                    (64, 300, 512), (128, 4, 2048)):
+        if not _resident(cuda.index or 0, batch, features, hidden):
+            continue
+        yes.append(hidden)
+        args = chip_smoke.sequence_args(batch, 1, cuda, seed=batch,
+                                        features=features, hidden=hidden)
+        with torch.inference_mode():
+            h, c = pallas_ops.lstm_sequence(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(h.float()).all() and \
+            torch.isfinite(c.float()).all()
+    assert 1024 in yes and 2048 not in yes, yes
+
+
+def test_lstm_classifier_bf16_inference_is_one_sequence_launch(cuda):
+    """A bf16 forward of the classifier without autograd launches K2's
+    sequence route once and no per-step K2; its logits agree with the
+    per-step loop's (2e-2 of the largest)."""
+    model = harness.init_model(LSTMClassifier(300, dtype=torch.bfloat16), 0,
+                               cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (100, 64, 300)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = dict(_build.launches)
+    got = harness.make_infer_fn(model)(x)
+    torch.cuda.synchronize()
+    assert _build.launches["lstm_sequence"] == \
+        before.get("lstm_sequence", 0) + 1
+    assert _build.launches["lstm_cell"] == before.get("lstm_cell", 0)
+    with torch.inference_mode():
+        h = c = torch.zeros(100, 1024, dtype=torch.bfloat16, device=cuda)
+        for x_t in x.transpose(0, 1).contiguous():
+            h, c = pallas_ops.lstm_cell(x_t, h, c, model.cell.wx,
+                                        model.cell.wh, model.cell.b)
+        want = model.head(h.float())
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 2e-2, err
+
+
+def test_lstm_classifier_bf16_on_the_card_matches_the_cpu(cuda):
+    """The runner's bf16 forward (B 100 x 64 steps) on the card, where it
+    takes K2's sequence route, against the same model on the CPU (the
+    plain cell): logits within 2e-2 of the largest."""
+    model = harness.init_model(
+        LSTMClassifier(300, hidden=1024, dtype=torch.bfloat16), 0, "cpu")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (100, 64, 300)).astype(np.float32)).to(torch.bfloat16)
+    want = harness.make_infer_fn(model)(x)
+    before = _build.launches["lstm_sequence"]
+    got = harness.make_infer_fn(model.to(cuda))(x.to(cuda)).cpu()
+    assert _build.launches["lstm_sequence"] == before + 1
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("case", ["grad", "fp32", "batch129"])
+def test_lstm_classifier_takes_the_per_step_route_elsewhere(cuda, case):
+    """Under autograd, in fp32 and at B 129 the classifier loops the
+    per-step K2: T launches, none of the sequence route."""
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    batch = 129 if case == "batch129" else 10
+    model = harness.init_model(LSTMClassifier(300, dtype=dtype), 0, cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (batch, 4, 300)).astype(np.float32)).to(cuda)
+    before = dict(_build.launches)
+    if case == "grad":
+        model(x).sum().backward()
+    else:
+        harness.make_infer_fn(model)(x)
+    torch.cuda.synchronize()
+    assert _build.launches["lstm_cell"] == before.get("lstm_cell", 0) + 4
+    assert _build.launches["lstm_sequence"] == \
+        before.get("lstm_sequence", 0)
 
 
 def _flash_args(batch, tq, tk, heads, dim, dtype, device, seed=0):

@@ -140,3 +140,56 @@ def test_cell_route_follows_dtype_shape_and_alignment():
         assert tops.cell_route(*args(*shape, torch.bfloat16)) == "elementwise"
     assert tops.cell_route(*args(100, 300, 1024, torch.bfloat16,
                                  offset=1)) == "elementwise"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("contiguous", [True, False])
+def test_lstm_sequence_on_cpu_is_the_plain_loop_and_counts_nothing(
+        dtype, contiguous):
+    from k8s_device_plugin_torch.workloads import pallas_ops as tops
+    steps, (x, h, c, wx, wh, b) = 5, _inputs(3, 12, 8, seed=4)
+    xs = np.random.default_rng(5).standard_normal((3, steps, 12))
+    t = getattr(torch, dtype)
+    xs = torch.from_numpy(xs.astype(np.float32)).to(t).transpose(0, 1)
+    if contiguous:
+        xs = xs.contiguous()
+    args = [torch.from_numpy(a.astype(np.float32)).to(t)
+            for a in (h, c, wx, wh, b)]
+    before = dict(_build.launches)
+    got = tops.lstm_sequence(xs, *args)
+    assert dict(_build.launches) == before
+    want_h, want_c = args[0], args[1]
+    for x_t in xs:
+        want_h, want_c = t_lstm_cell_reference(x_t, want_h, want_c,
+                                               *args[2:])
+    assert torch.equal(got[0], want_h) and torch.equal(got[1], want_c)
+    assert not tops.sequence_route(xs, *args)  # the CPU has no kernel
+
+
+def test_sequence_route_follows_dtype_grad_shape_and_device(monkeypatch):
+    from k8s_device_plugin_torch.workloads import pallas_ops as tops
+    fits = tops.sequence_fits
+    case = dict(device_type="cuda", dtype=torch.bfloat16, recording=False,
+                batch=100, features=300, hidden=1024)
+    assert fits(**case)
+    for change in ({"device_type": "cpu"}, {"device_type": "meta"},
+                   {"dtype": torch.float32}, {"dtype": torch.float16},
+                   {"recording": True}, {"batch": 0}, {"batch": 129},
+                   {"features": 302}, {"hidden": 1000}, {"hidden": 0}):
+        assert not fits(**{**case, **change}), change
+    for change in ({"batch": 1}, {"batch": 128}, {"features": 4},
+                   {"hidden": 16}):
+        assert fits(**{**case, **change}), change
+    # tensors off the card never ask the card whether the grid fits
+    monkeypatch.setattr(tops, "_resident", lambda *a: pytest.fail(str(a)))
+    xs = torch.zeros(2, 4, 12, dtype=torch.bfloat16)
+    h = torch.zeros(4, 16, dtype=torch.bfloat16)
+    w = [torch.zeros(12, 64, dtype=torch.bfloat16),
+         torch.zeros(16, 64, dtype=torch.bfloat16),
+         torch.zeros(64, dtype=torch.bfloat16)]
+    assert not tops.sequence_route(xs, h, h, *w)
+    assert not tops.sequence_route(xs.to("meta"), h.to("meta"),
+                                   h.to("meta"), *(t.to("meta") for t in w))
+    with pytest.raises(ValueError, match="no sequence route"):
+        tops.lstm_sequence(xs.to("meta"), h.to("meta"), h.to("meta"),
+                           *(t.to("meta") for t in w))

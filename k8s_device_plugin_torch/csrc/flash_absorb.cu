@@ -80,6 +80,7 @@
 namespace {
 
 using sm90::bits;
+using sm90::ex2;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -414,14 +415,6 @@ constexpr int QBYTES = BQ * ROW;  // 24 KB
 // tiles on 1024-byte boundaries (the swizzle atom), then 2 * STAGES + 1
 // mbarriers; 1024 bytes of slack to align the dynamic buffer
 constexpr int SMEM = 1024 + QBYTES + 2 * STAGES * TILE + 8 * (2 * STAGES + 1);
-
-// 2^x in one MUFU instruction (relative error below 2^-22); exp2f adds
-// range handling around it, which the softmax pays for every score
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // descriptors: K-major (Q, K: the head dim contiguous) and MN-major (V:
 // the head dim, wgmma's N, contiguous); either way 8-row groups of 128-byte

@@ -64,19 +64,74 @@ constexpr int NT = 128;  // threads: 16 columns x 8 row groups of 8 rows
 constexpr int RT = BM / (NT / BJ);  // rows per thread (8)
 constexpr int AS = BM + 4;  // padded row of the transposed A tile
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
-
 __device__ __forceinline__ float bf(bits v) {
   return __bfloat162float(__ushort_as_bfloat16(v));
+}
+
+// ------------------------------------------------------------ gate math
+//
+// Every route finishes its (row, j)s with finish(): one gate function, so
+// the routes differ only in the order of their fp32 sums. It is branch-free
+// and runs on the SFU: 5 ex2.approx and 3 rcp.approx an element, about 45
+// other instructions, no IEEE division and no libdevice expf or tanhf
+// (tanhf branches on |x|, which diverges inside a warp, and each division
+// carries a slow-path check). With E = e^(-2|v|):
+//   sigmoid(v) = 1 / (1 + e^-v),   tanh(v) = n / d,
+// n = sign(v) (1 - E), d = 1 + E for |v| >= 0.55, and n = v + v^3 P(v^2),
+// d = 1 below it (P a minimax fit of degree 3 in v^2: the difference
+// 1 - E loses v's relative accuracy near 0). Each e^x is ex2 of x log2 e.
+// Where a sigmoid multiplies a tanh (i with g, o with c') the two share
+// one reciprocal: sigmoid(u) tanh(v) = n / ((1 + e^-u) d).
+//
+// Subnormal results are kept, as IEEE division keeps them: a sigmoid's
+// denominator is carried times 2^-64, as h^2 + 2^-64 with h = 2^(-v log2 e
+// / 2) 2^-32, so that the reciprocal stays normal and the last multiply
+// (by 2^-64, then by n or c) rounds into the subnormal range without a
+// flush. Nothing needs clamping: an exponent past fp32's range makes h
+// +inf, which meets only d >= 1 and the reciprocal (1/inf = +0); one of
+// -inf makes it 0. So every finite input saturates to 0 or 1, nothing
+// meets inf * 0, and a NaN stays NaN.
+//
+// Accuracy, against float64 (ex2 within 2 ulp, rcp within 1): sigmoid and
+// tanh within 4 fp32 ulp or 2^-22 absolute over all of fp32, on the card
+// too (tests/test_torch_cuda.py). The absolute bound holds where v << 0:
+// there the rounding of v log2 e, which grows with |v|, takes sigmoid's
+// relative error past 4 ulp, and sigmoid is small enough that the error
+// stays below 2^-22. Not tanh.approx.f32: its 2^-11 relative error would
+// be a lower precision, not the same work done faster.
+
+// (1 + e^-v) 2^-64
+__device__ __forceinline__ float sigmoid_den(float v) {
+  const float h = sm90::ex2(v * -0.7213475204f) * 0x1p-32f;  // log2(e) / 2
+  return fmaf(h, h, 0x1p-64f);
+}
+
+// tanh(v) = n / d
+__device__ __forceinline__ void tanh_frac(float v, float& n, float& d) {
+  const float a = fabsf(v);
+  const float e = sm90::ex2(a * -2.8853900818f);  // 2 log2(e)
+  const float s = v * v;
+  float p = 1.6378708e-2f;
+  p = fmaf(p, s, -5.2640017e-2f);
+  p = fmaf(p, s, 1.3320218e-1f);
+  p = fmaf(p, s, -3.3332923e-1f);
+  const bool near0 = a < 0.55f;
+  n = near0 ? fmaf(p * s, v, v) : copysignf(1.f - e, v);
+  d = near0 ? 1.f : 1.f + e;
+}
+
+// sigmoid(u) tanh(v), one reciprocal
+__device__ __forceinline__ float sigmoid_tanh(float u, float v) {
+  float n, d;
+  tanh_frac(v, n, d);
+  return n * (sm90::rcp(sigmoid_den(u) * d) * 0x1p-64f);
 }
 
 // the gate math for one (row, j): gates i, f, g, o with their biases added
 __device__ __forceinline__ void finish(float i, float f, float g, float o,
                                        float c, float& h_new, float& c_new) {
-  c_new = sigmoid(f) * c + sigmoid(i) * tanhf(g);
-  h_new = sigmoid(o) * tanhf(c_new);
+  c_new = fmaf(sm90::rcp(sigmoid_den(f)) * 0x1p-64f, c, sigmoid_tanh(i, g));
+  h_new = sigmoid_tanh(o, c_new);
 }
 
 // ---------------------------------------------------------------- fp32, FMA
@@ -489,7 +544,13 @@ lstm_cell_kernel(const bits* __restrict__ x, const bits* __restrict__ h,
 // x_t (60 KB); the call's lower bound is its products, 1.12 ms at case
 // 5.1 (T x 1.0846 GFLOP at 989 TFLOP/s). What bounds it instead is a
 // step's chain of latencies: the grid barrier, L2's delivery of h_t to
-// 128 SMs at once, the partial sums' exchange and the gate math.
+// 128 SMs at once, the partial sums' exchange and the gate math. The gate
+// math is pure instruction latency (2 consumer warps a scheduler), so it
+// runs finish()'s branch-free SFU form (above: ex2.approx and rcp.approx,
+// one reciprocal for each sigmoid times tanh, within 4 fp32 ulp or 2^-22
+// of float64; not tanh.approx.f32, whose 2^-11 would lower the
+// precision), each thread's four elements in one straight run so that
+// their SFU operations overlap.
 //
 // Layout, as the ring route's: a cluster of two blocks owns 16 hidden
 // columns of each gate slab (128 blocks at H = 1024, one an SM) and up to
@@ -814,24 +875,26 @@ lstm_cell_seq_kernel(const __grid_constant__ CUtensorMap x_map,
 
       const bool last = t + 1 == steps;
       bits* h_next = hbuf + ((t + 1) & 1) * plane;
+      // the thread's four elements in one straight run, so that their SFU
+      // operations overlap; then the stores
+      float hn[4], cn[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        finish(gate[0][e] + bias[0][e % 2], gate[1][e] + bias[1][e % 2],
+               gate[2][e] + bias[2][e % 2], gate[3][e] + bias[3][e % 2],
+               c[e], hn[e], cn[e]);
+        c[e] = __bfloat162float(__float2bfloat16(cn[e]));
+      }
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
         const int m = m_base + 8 * (e / 2);
-        float hn[2], cn[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          finish(gate[0][e + k] + bias[0][k], gate[1][e + k] + bias[1][k],
-                 gate[2][e + k] + bias[2][k], gate[3][e + k] + bias[3][k],
-                 c[e + k], hn[k], cn[k]);
-          c[e + k] = __bfloat162float(__float2bfloat16(cn[k]));
-        }
         if (m >= rows) continue;
         const size_t idx = static_cast<size_t>(m) * hidden + j;
         *reinterpret_cast<uint32_t*>(h_next + idx) =
-            sm90::pack(hn[0], hn[1]);
+            sm90::pack(hn[e], hn[e + 1]);
         if (last)
           *reinterpret_cast<uint32_t*>(c_out + idx) =
-              sm90::pack(cn[0], cn[1]);
+              sm90::pack(cn[e], cn[e + 1]);
       }
       if (!last) {
         warp_arrive(stored);

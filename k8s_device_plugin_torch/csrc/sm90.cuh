@@ -1,9 +1,9 @@
 // PTX building blocks for the port's Hopper kernels (sm_90a): mbarriers,
 // cluster barriers and gpu-scope acquire and release, TMA tensor loads and
 // L2 prefetch, distributed shared memory (mapa, st.async), wgmma with
-// shared-memory descriptors, cp.async with zero fill and mma.sync. Thin
-// wrappers, one instruction each; and, for the host, the driver's tensor
-// map encoder.
+// shared-memory descriptors, cp.async with zero fill and mma.sync, and the
+// SFU's 2^x and 1/x. Thin wrappers, one instruction each; and, for the
+// host, the driver's tensor map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -271,6 +271,26 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------------------ SFU
+
+// 2^x in one MUFU instruction (relative error below 2^-22); exp2f adds
+// range handling around it. Flushes a subnormal input or result to 0;
+// 2^(+inf) = +inf, 2^(-inf) = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1/x in one MUFU instruction (within 1 ulp), without the IEEE division's
+// refinement and slow-path branch. Flushes a subnormal input or result to
+// 0; 1/(+inf) = +0.
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ----------------------------------------------------------------- host

@@ -219,6 +219,173 @@ def test_lstm_classifier_takes_the_per_step_route_elsewhere(cuda, case):
         before.get("lstm_sequence", 0)
 
 
+# The gate math alone: one step with x one-hot (row m at feature m) and
+# h = 0, so each (row, j)'s preactivations are wx's row m plus b, set
+# directly. Columns below _BIAS_COLS carry theirs in b alone (wx 0 there),
+# so that subnormal and extreme values reach the gate math without a
+# tensor-core product.
+_GATE_ROWS, _GATE_HIDDEN, _BIAS_COLS = 128, 1024, 64
+
+
+def _gate_pool(subnormal: bool):
+    """Preactivations over [-100, 100]: 0, +-88, the branch points of
+    tanhf and of the kernel (|x| 0.55-0.6), a dense line, magnitudes from
+    the smallest up, fp32's extremes; rounded to bf16 where the kernels
+    read bf16."""
+    tiny = 1e-39 if subnormal else 1e-37
+    geo = np.geomspace(tiny, 100.0, 600)
+    special = [0.0, 88.0, -88.0, 0.55, -0.55, 0.5999, 0.6, -0.6, 0.6001,
+               100.0, -100.0, 1e30, -1e30, 3e38, -3e38]
+    if subnormal:
+        special += [1e-39, -1e-39, 5e-41, 1.17e-38, -1e-38]
+    pool = np.concatenate([special, np.linspace(-100.0, 100.0, 4001),
+                           geo, -geo])
+    return torch.from_numpy(pool.astype(np.float32)).to(torch.bfloat16)
+
+
+def _gate_args(seed=0):
+    """x [B, B] one-hot, h0 = 0, c0 over magnitudes, wx [B, 4H], wh, b
+    (bf16, on the CPU); the first 64 rows sweep each gate's pool column by
+    column, the rest draw the four gates at random."""
+    rng = np.random.default_rng(seed)
+    rows, hidden = _GATE_ROWS, _GATE_HIDDEN
+    pool = _gate_pool(subnormal=False)
+    wx = pool[torch.from_numpy(rng.integers(0, len(pool),
+                                            (rows, 4 * hidden)))]
+    walk = pool[torch.arange(16 * hidden) % len(pool)].view(16, hidden)
+    for q in range(4):  # rows 16q .. 16q+15: gate q walks the pool
+        wx[16 * q:16 * q + 16, q * hidden:(q + 1) * hidden] = walk
+    b = torch.zeros(4 * hidden, dtype=torch.bfloat16)
+    full = _gate_pool(subnormal=True)
+    for q in range(4):
+        cols = slice(q * hidden, q * hidden + _BIAS_COLS)
+        wx[:, cols] = 0
+        b[cols] = full[torch.from_numpy(rng.integers(0, len(full),
+                                                     _BIAS_COLS))]
+        b[q * hidden + _BIAS_COLS:(q + 1) * hidden] = torch.from_numpy(
+            rng.choice([0.0, 0.25, -0.5], hidden - _BIAS_COLS)
+            .astype(np.float32)).to(torch.bfloat16)
+    cs = torch.tensor([0.0, 1e-3, -1e-3, 0.5, -0.5, 1.0, -1.0, 3.0, -3.0,
+                       7.0, -7.0, 100.0, -100.0, 1e-38, -1e-39])
+    c0 = cs[torch.from_numpy(rng.integers(0, len(cs), (rows, hidden)))] \
+        .to(torch.bfloat16)
+    x = torch.eye(rows, dtype=torch.bfloat16)
+    h0 = torch.zeros(rows, hidden, dtype=torch.bfloat16)
+    wh = (torch.randn(hidden, 4 * hidden, generator=torch.Generator()
+                      .manual_seed(seed)) * 0.03).to(torch.bfloat16)
+    return x, h0, c0, wx, wh, b
+
+
+def _gate_reference(wx, b, c0):
+    """h', c' in float64 from the fp32 preactivations (wx + b, as the
+    kernels add them), and each's allowance where fp32 cannot be nearer:
+    16 fp32 ulps of |sigmoid(f) c| + |sigmoid(i) tanh(g)|, the two terms
+    whose fp32 sum c' is (times sigmoid(o) for h')."""
+    pre = (wx.float() + b.float()).double()
+    i, f, g, o = pre.split(_GATE_HIDDEN, dim=1)
+    c = c0.double()
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    terms = (torch.sigmoid(f) * c).abs() + (torch.sigmoid(i)
+                                            * torch.tanh(g)).abs()
+    return ((h_new, 2.0 ** -20 * terms * torch.sigmoid(o)),
+            (c_new, 2.0 ** -20 * terms))
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps, element by element (-0 and +0 are one
+    value)."""
+    def ordered(t):
+        bits = t.view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.parametrize("route", ["sequence", "ring", "elementwise", "fma"])
+def test_lstm_gate_math_holds_h_and_c_to_float64(cuda, route):
+    """One step of each K2 entry on preactivations set directly (0, +-88,
+    |x| 0.55-0.6, subnormal and extreme magnitudes, a dense line over
+    [-100, 100]) and c over magnitudes: h' and c' finite and within 1
+    bf16 step of the float64 math rounded to bf16, or, where c's two
+    terms cancel, within fp32's own rounding of them (``_gate_reference``).
+    The fp32 route's outputs are rounded to bf16 for the comparison."""
+    x, h0, c0, wx, wh, b = _gate_args(seed=11)
+    args = [t.to(cuda) for t in (x, h0, c0, wx, wh, b)]
+    with torch.inference_mode():
+        if route == "sequence":
+            assert pallas_ops.sequence_route(args[0][None], *args[1:])
+            got = pallas_ops.lstm_sequence(args[0][None], *args[1:])
+        elif route == "fma":
+            got = pallas_ops.lstm_cell(*(t.float() for t in args))
+        elif route == "ring":
+            assert pallas_ops.cell_route(*(args[i] for i in (0, 1, 3, 4))) \
+                == "ring"
+            got = pallas_ops.lstm_cell(*args)
+        else:
+            got = (torch.empty_like(h0, device=cuda),
+                   torch.empty_like(c0, device=cuda))
+            pallas_ops.LSTM_CELL(
+                args[0], pallas_ops.ROUTES[route],
+                *(t.data_ptr() for t in (*args, *got)), *x.shape,
+                _GATE_HIDDEN)
+        torch.cuda.synchronize()
+    for name, out, (want, slack) in zip("hc", got, _gate_reference(wx, b, c0)):
+        out = out.cpu()
+        assert torch.isfinite(out.float()).all(), name
+        out = out.to(torch.bfloat16)
+        steps = _bf16_steps(out, want.float().to(torch.bfloat16))
+        err = (out.double() - want).abs()
+        bad = (steps > 1) & (err > slack)
+        assert not bad.any(), (
+            f"{route} {name}': {int(bad.sum())} elements off, e.g. "
+            f"{out[bad][:4].tolist()} against {want[bad][:4].tolist()}")
+
+
+def test_lstm_gate_functions_hold_fp32_accuracy(cuda):
+    """sigmoid and tanh as the kernels compute them, read through the fp32
+    route's c' = sigmoid(f) c + sigmoid(i) tanh(g): with i = 100, f = -100
+    and c = 0 it is tanh(g); with i = -100, g = 1 and c = 1 it is
+    sigmoid(f) (plus sigmoid(-100) tanh(1), kept in the reference). Each
+    within 4 fp32 ulp or 2^-22 absolute of float64, over a sweep of all
+    of fp32's range: 0, subnormals, |x| 0.55-0.6, +-88, +-100, 1e30,
+    3e38."""
+    rows, hidden = _GATE_ROWS, _GATE_HIDDEN
+    n = rows // 2 * hidden
+    mag = np.geomspace(1e-45, 3e38, n // 4)
+    sweep = np.concatenate([mag, -mag, np.linspace(-100.0, 100.0, n // 2)])
+    sweep[:8] = [0.0, 88.0, -88.0, 0.55, -0.55, 0.6, -0.6, -100.0]
+    v = torch.from_numpy(sweep.astype(np.float32)).view(rows // 2, hidden)
+    wx = torch.zeros(rows, 4 * hidden)
+    c0 = torch.zeros(rows, hidden)
+    tanh_rows, sig_rows = slice(0, rows // 2), slice(rows // 2, rows)
+    wx[tanh_rows, :hidden] = 100.0
+    wx[tanh_rows, hidden:2 * hidden] = -100.0
+    wx[tanh_rows, 2 * hidden:3 * hidden] = v
+    wx[sig_rows, :hidden] = -100.0
+    wx[sig_rows, hidden:2 * hidden] = v
+    wx[sig_rows, 2 * hidden:3 * hidden] = 1.0
+    c0[sig_rows] = 1.0
+    x = torch.eye(rows)
+    h0 = torch.zeros(rows, hidden)
+    wh = torch.zeros(hidden, 4 * hidden)
+    b = torch.zeros(4 * hidden)
+    with torch.inference_mode():
+        _, c_new = pallas_ops.lstm_cell(*(t.to(cuda) for t in
+                                          (x, h0, c0, wx, wh, b)))
+    got = c_new.cpu().double()
+    vd = v.double()
+    want = torch.cat([torch.tanh(vd), torch.sigmoid(vd) + torch.sigmoid(
+        torch.tensor(-100.0, dtype=torch.float64)) * np.tanh(1.0)])
+    ulp = torch.from_numpy(np.spacing(want.abs().float().numpy())).double()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    bad = (err > 4 * ulp) & (err > 2.0 ** -22)
+    assert not bad.any(), (
+        f"{int(bad.sum())} off, e.g. at {torch.cat([v, v])[bad][:4].tolist()}"
+        f": {(err / ulp)[bad][:4].tolist()} ulp")
+
+
 def _flash_args(batch, tq, tk, heads, dim, dtype, device, seed=0):
     """q, k, v in ``dtype`` and a carried state that is not the identity."""
     rng = np.random.default_rng(seed)
@@ -555,14 +722,9 @@ def _card_activation(shape, device, seed):
 
 
 def _bf16_ulps(got, want) -> int:
-    """The largest distance in bf16 steps between two bf16 tensors (-0 and
-    +0 are one value)."""
-    def ordered(t):
-        bits = t.view(torch.int16).int()
-        mag = bits & 0x7FFF
-        return torch.where(bits < 0, -mag, mag)
+    """The largest distance in bf16 steps between two bf16 tensors."""
     assert got.dtype == want.dtype == torch.bfloat16
-    return int((ordered(got) - ordered(want)).abs().max())
+    return int(_bf16_steps(got, want).max())
 
 
 @pytest.mark.parametrize("width,side", RESNET_STAGES)

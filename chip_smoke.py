@@ -25,7 +25,11 @@ Phases, one JSON line each; any failure exits non-zero:
    against a loop of the plain cell, and at case 5.1 against a loop of
    per-step K2 launches (``kernel_lstm_sequence``: ms a call, us a step,
    the plain loop's, the K2 loop's and cuDNN's LSTM's device time, and
-   the call's bound);
+   the call's bound); K3 at Trinity-Mini's shape ([1, 16384, 32, 128]
+   bf16, K and V expanded from 4 heads, ``mma_sync``) under its window of
+   2048 (``flash_window_kernel``) and causal, each against the plain
+   absorb computed in query blocks and timed against its bound
+   (``kernel_flash_window``);
 4. gradients: the flash absorb's ``autograd.Function`` (K3 forward,
    recompute backward) against dense attention's gradients, in fp32, and
    in bf16 at the LM's train chunking and at the MoE LM's whole-sequence
@@ -98,7 +102,13 @@ Phases, one JSON line each; any failure exits non-zero:
    forward's profile and most loaded expert, its logits bit-equal with
    the SwiGLUs forced through the ATen chain, and one expert layer's
    grouped products against the plain ones on the CPU on the same routed
-   tokens;
+   tokens; then Trinity-Mini (``afmoe``) as its cell's tenant builds
+   and serves it (rank 0 of 4-way expert parallelism, one prompt of
+   16,384 embeddings): 24 windowed K3 absorbs, 8 causal ones, 30 grouped
+   expert applies and 62 K6 passes a forward (else it fails), the
+   windowed launches as ``tc::flash_window_kernel<128>`` and the causal
+   ones as ``tc::flash_kernel<128>`` in the trace, and the forward's
+   profile;
 14. correctness: the models on the card against the same weights on the
    CPU at small inputs (the MoE LM with its count of routing decisions
    that differ), greedy decoding of the LM and the MoE LM on the card
@@ -825,6 +835,141 @@ def phase_flash_kernel() -> dict:
          bound_ms=bound_ms, bound_by=result["bound_by"],
          bytes=nbytes, flops=flops, timing=timing)
     return result
+
+
+#: Trinity-Mini's configuration, which ``trinity-mini.solo`` serves
+TRINITY_CONFIG = "trinity-mini.ep4-prefill16k.json"
+
+
+def _config(name: str) -> dict:
+    """The benchmark's configuration ``name`` under ``vgpu_bench/configs``."""
+    with open(os.path.join(HERE, "vgpu_bench", "configs", name)) as f:
+        return json.load(f)
+
+
+def _blocked_absorb(q, k, v, m, l, o, window: int, block: int = 512):
+    """The plain absorb (:func:`flash.absorb_block_reference`) of a causal
+    call under ``window`` (0 for none), ``block`` queries at a time over
+    the keys they can see, as ``vgpu_bench/reference/afmoe.py`` computes
+    attention: at T = 16,384 the whole [H, T, T] fp32 scores would take
+    34 GB."""
+    import torch
+    from k8s_device_plugin_torch.workloads import flash
+    t = q.shape[1]
+    parts = []
+    for q0 in range(0, t, block):
+        q1 = min(q0 + block, t)
+        k0 = max(0, q0 - window + 1) if window else 0
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        cols = torch.arange(k0, q1, device=q.device)[None, :]
+        allowed = cols <= rows
+        if window:
+            allowed &= rows - cols < window
+        parts.append(flash.absorb_block_reference(
+            q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], allowed, m[:, :, q0:q1],
+            l[:, :, q0:q1], o[:, q0:q1], q.shape[-1] ** -0.5))
+    return [torch.cat(ts, dim) for ts, dim in zip(zip(*parts), (2, 2, 1))]
+
+
+def _launch_ms(fn, kernel: str, iters: int) -> tuple[float, int]:
+    """Device ms of one launch of the kernel whose name holds ``kernel``,
+    over ``iters`` calls of ``fn`` under torch.profiler, and the launches
+    the trace kept. A mean over the launches kept, not a sum over the
+    calls as :func:`device_ms` takes: events at the start of a profiled
+    window can go missing (:func:`_profile`), and late in this script the
+    sum read 3 of 5 launches of K3 at Trinity's shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kept = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in kept)
+    if not count:
+        raise AssertionError(f"the profiler kept no launch of {kernel}")
+    return sum(e.self_device_time_total for e in kept) / 1e3 / count, count
+
+
+def phase_flash_window_kernel() -> dict:
+    """K3 at Trinity-Mini's shape, [1, 16384, 32, 128] bf16 with K and V
+    expanded from 4 heads as ``afmoe.attention`` expands them, identity
+    state, on its ``mma_sync`` route: under the window of 2048 (one
+    ``flash_window_kernel`` launch, counted under ``flash_window``) and
+    causal (one ``flash_kernel`` launch), each against the plain absorb
+    computed in query blocks (:func:`_blocked_absorb`) on m, l, o and the
+    finalized output (tolerance 2e-2, as the LM case), and each timed
+    against its bound from ``vgpu_bench/counts/afmoe.py``'s
+    ``kernel_cost`` (the larger of its bytes at 3.35 TB/s and its FLOP at
+    989 TFLOP/s) by the mean of the launches traced (:func:`_launch_ms`).
+    Returns the windowed launch's ``kernels`` entry."""
+    import torch
+    from k8s_device_plugin_torch import _build
+    from k8s_device_plugin_torch.workloads import attention, flash
+    from vgpu_bench.counts import afmoe as counts
+    cfg = _config(TRINITY_CONFIG)
+    batch, seq, _ = cfg["input_shape"]
+    heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    dim, window = cfg["head_dim"], cfg["sliding_window"]
+    bf16 = torch.bfloat16
+    q, k, v, m, l, o = _flash_args(batch, seq, seq, heads, dim, bf16, 23,
+                                   True)
+    k, v = (attention.expand_kv(t[:, :, :kv].contiguous(), heads)
+            for t in (k, v))
+    cost = counts.kernel_cost(cfg)
+    lines = {}
+    for name, w in (("flash_window", window), ("flash_absorb", 0)):
+        route = flash.absorb_route(q.dtype, dim, seq, w)
+        _build.launches.clear()
+        got = flash.flash_absorb(q, k, v, 1, m, l, o, w)
+        launched = {n: _build.launches[n]
+                    for n in ("flash_window", "flash_absorb")}
+        if launched != {n: int(n == name)
+                        for n in ("flash_window", "flash_absorb")}:
+            raise AssertionError(f"flash_absorb window {w}: launches "
+                                 f"{launched}")
+        want = _blocked_absorb(q, k, v, m, l, o, w)
+        errs = {part: check_close(f"flash_absorb Trinity window {w} {part}",
+                                  g, r, 2e-2)
+                for part, g, r in zip("mlo", got, want)}
+        errs["finalized"] = check_close(
+            f"flash_absorb Trinity window {w} finalized",
+            flash.flash_finalize(*got, bf16),
+            flash.flash_finalize(*want, bf16), 2e-2)
+        del got, want
+        ms, traced = _launch_ms(
+            lambda w=w: flash.flash_absorb(q, k, v, 1, m, l, o, w),
+            "tc::flash_window_kernel<" if w else "tc::flash_kernel<", 5)
+        plain_ms, _ = device_ms(
+            lambda w=w: _blocked_absorb(q, k, v, m, l, o, w), 1, warmup=1)
+        flops, nbytes = cost[name]
+        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        bound_ms = max(bytes_s, ops_s) * 1e3
+        lines[name] = {
+            "window": w, "route": route, "max_abs_err": errs, "ms": ms,
+            "timing": "profiler", "launches_traced": traced,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "share_of_bound": bound_ms / ms, "flops": flops,
+            "bytes": nbytes}
+    emit("kernel_flash_window", shape=list(q.shape), dtype="bfloat16",
+         kind=1, window=lines["flash_window"], causal=lines["flash_absorb"],
+         window_over_causal_ms=lines["flash_window"]["ms"]
+         / lines["flash_absorb"]["ms"])
+    del q, k, v, m, l, o
+    torch.cuda.empty_cache()
+    line = lines["flash_window"]
+    return {"name": "flash_window", "route": "cuda",
+            "source": "k8s_device_plugin_torch/csrc/flash_absorb.cu",
+            "replaces": "none: the JAX package's absorb takes no window",
+            "max_abs_err": line["max_abs_err"]["finalized"],
+            "ms": line["ms"], "kernel_ms": line["ms"],
+            "timing": line["timing"], "kernel_route": line["route"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": None}
 
 
 def _grads(fn, inputs, cotangent=None):
@@ -1557,11 +1702,12 @@ def _runner_line(argv) -> dict:
     return line
 
 
-#: the names read from ``_build.launches``: the six kernels' and K2's
-#: sequence route, then LFM2's short convs and grouped expert applies
+#: the names read from ``_build.launches``: the six kernels', K2's
+#: sequence route and K3's window, then LFM2's short convs and grouped
+#: expert applies
 COUNTED = ("probe_chain", "lstm_cell", "lstm_sequence", "flash_absorb",
-           "bn_relu", "add_bn_relu", "swiglu_gate", "short_conv",
-           "expert_apply")
+           "flash_window", "bn_relu", "add_bn_relu", "swiglu_gate",
+           "short_conv", "expert_apply")
 
 
 def _counting(by_path: dict):
@@ -1760,12 +1906,14 @@ def _check_own_paths(by_path: dict) -> None:
            "lstm_sequence": ["lstm_case_5_1"],
            "flash_absorb": ["lm_infer", "lm_train", "moe_lm_infer",
                             "moe_lm_train", "multichip_ring_flash",
-                            "multichip_moe_lm_ring_flash"],
+                            "multichip_moe_lm_ring_flash",
+                            "afmoe_forward"],
            "bn_relu": ["multichip_resnet50_infer"],
            "add_bn_relu": ["multichip_resnet50_infer"],
-           "swiglu_gate": ["lfm2_moe_forward"],
+           "flash_window": ["afmoe_forward"],
+           "swiglu_gate": ["lfm2_moe_forward", "afmoe_forward"],
            "short_conv": ["lfm2_moe_forward"],
-           "expert_apply": ["lfm2_moe_forward"]}
+           "expert_apply": ["lfm2_moe_forward", "afmoe_forward"]}
     missing = [(name, path) for name, paths in own.items() for path in paths
                if path in by_path and by_path[path][name] <= 0]
     if missing:
@@ -2446,10 +2594,7 @@ def phase_lfm2_moe() -> dict:
     from k8s_device_plugin_torch.workloads import (attention, flash, lfm2,
                                                    moe, swiglu)
     from vgpu_bench import tenant, weights
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "vgpu_bench", "configs",
-                           "lfm2-8b-a1b.prefill4k.json")) as f:
-        cfg = json.load(f)
+    cfg = _config("lfm2-8b-a1b.prefill4k.json")
     batch, seq, _ = cfg["input_shape"]
     heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     dim = cfg["hidden_size"] // heads
@@ -2544,6 +2689,68 @@ def phase_lfm2_moe() -> dict:
     del model
     torch.cuda.empty_cache()
     return {"lfm2_moe_forward": launched}
+
+
+#: launches of one Trinity-Mini forward (:func:`phase_afmoe`): K3 in the
+#: 24 sliding layers (windowed) and the 8 full ones (causal), the 30
+#: expert layers' grouped applies, K6 in 2 dense, 30 shared and 30 routed
+#: SwiGLUs
+AFMOE_COUNTS = {"flash_window": 24, "flash_absorb": 8, "expert_apply": 30,
+                "swiglu_gate": 62}
+
+
+def phase_afmoe() -> dict:
+    """Trinity-Mini at its published widths as rank 0 of 4-way expert
+    parallelism, built and served as the cell ``trinity-mini.solo`` does
+    (``vgpu_bench.tenant.build`` on the seed's weights, the first input of
+    its pool, one prompt of 16,384 embeddings): the counters of one
+    forward, set to 0 just before it (:data:`AFMOE_COUNTS`, else it
+    fails), its K3 launches in the trace as ``tc::flash_window_kernel<128>``
+    (24) and ``tc::flash_kernel<128>`` (8), the logits finite at [1,
+    vocab], the build's peak memory and the forward's profile (3 timed).
+    Returns the forward's launches of every port kernel, as the main
+    paths' (``afmoe_forward``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from k8s_device_plugin_torch import _build
+    from vgpu_bench import tenant, weights
+    cfg = _config(TRINITY_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    model = tenant.build(cfg, 0, "cuda")
+    x = weights.inputs(cfg, 0, 0, 0, "cuda")
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+    forward()
+    _build.launches.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a kernel first: events at the very start of a profiled window
+        # can go missing (:func:`_profile`), and every K3 launch is counted
+        torch.ones(1, device="cuda").add_(1)
+        logits = forward()
+        torch.cuda.synchronize()
+    launched = {name: _build.launches[name] for name in COUNTED}
+    counts = {name: launched[name] for name in AFMOE_COUNTS}
+    if counts != AFMOE_COUNTS:
+        raise AssertionError(f"afmoe: launches {counts}, expected "
+                             f"{AFMOE_COUNTS}")
+    traced = {name: sum(e.count for e in prof.key_averages()
+                        if name in e.key)
+              for name in ("tc::flash_window_kernel<128>",
+                           "tc::flash_kernel<128>")}
+    if list(traced.values()) != [24, 8]:
+        raise AssertionError(f"afmoe: K3's kernels in the trace {traced}")
+    if tuple(logits.shape) != (1, model.cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"afmoe: logits {tuple(logits.shape)}")
+    emit("afmoe_profile", tokens_per_call=x.shape[0] * x.shape[1],
+         launches=counts, traced=traced,
+         peak_bytes=torch.cuda.max_memory_allocated(),
+         **_profile(forward, 3, top=12))
+    del model, x, logits
+    torch.cuda.empty_cache()
+    return {"afmoe_forward": launched}
 
 
 def phase_model_train_profiles() -> None:
@@ -2958,6 +3165,7 @@ def main() -> int:
                "lstm_cell": phase_lstm_kernel(),
                "lstm_sequence": phase_lstm_sequence_kernel(),
                "flash_absorb": phase_flash_kernel(),
+               "flash_window": phase_flash_window_kernel(),
                **phase_bn_relu_kernel(), **phase_swiglu_kernel()}
     attention = phase_flash_grad()
     phase_lstm_grad()
@@ -2972,6 +3180,7 @@ def main() -> int:
     phase_model_train_profiles()
     phase_moe_profile()
     by_path.update(phase_lfm2_moe())
+    by_path.update(phase_afmoe())
     _check_own_paths(by_path)
     launches = {name: sum(p[name] for p in by_path.values())
                 for name in kernels}

@@ -240,13 +240,15 @@ class Kernel:
     first call, launches with ``args`` on the current stream of tensor
     ``on``'s device, raises through :func:`check` (the message names
     ``label``, default :attr:`name`) and, once the entry returned
-    success, counts one launch in :data:`launches` under :attr:`name`,
-    ``entry`` without its ``vtpu_`` prefix."""
+    success, counts one launch in :data:`launches` under :attr:`name`:
+    ``name`` if given (two handles of one entry that launch kernels of
+    their own names), else ``entry`` without its ``vtpu_`` prefix."""
 
-    def __init__(self, library: str, entry: str, argtypes: list):
+    def __init__(self, library: str, entry: str, argtypes: list,
+                 name: str | None = None):
         self.library = library
         self.entry = entry
-        self.name = entry.removeprefix("vtpu_")
+        self.name = name or entry.removeprefix("vtpu_")
         self._argtypes = [*argtypes, ctypes.c_void_p]
         self._lib = self._fn = None
 

@@ -5,7 +5,9 @@
 // (_flash_kernel, lines 60-116, launched by _flash_absorb_impl at line 158
 // under flash_absorb). Same semantics: s = q.k^T / sqrt(D) in fp32, a
 // runtime mask kind (0 attends to all, 1 is causal on call-local
-// row >= col, 2 masks all), and the state carried in and out: m, l
+// row >= col, 2 masks all), an optional window W (key col visible to query
+// row only when row - col < W; 0 for none), and the state carried in and
+// out: m, l
 // [B][H][Tq] and o [B][Tq][H][D] in fp32, contiguous; q, k, v [B][T][H][D],
 // bf16 or fp32, each with its own strides (the unit-stride head dim
 // aside), so the views of a fused QKV projection are read in place. The
@@ -33,8 +35,15 @@
 // Tq, Tk are zero-filled and masked (the TPU fitted tiles to divisors of
 // T). kind 1 skips tiles wholly above the diagonal and kind 2 absorbs no
 // tile; both are exact (they would add p = 0 with corr = 1), so kind 2
-// copies the state bit for bit. Three routes, chosen by the wrapper from
-// dtype and head dim (never after a failure):
+// copies the state bit for bit. A window W starts each query tile's key
+// loop at the tile that holds key q0 - W + 1 (q0 the tile's first row), so
+// the tiles wholly before the band are never loaded; the band's edge is
+// masked element by element. The fp32 and mma.sync routes take a window,
+// each through a kernel of its own name, flash_window_kernel, over the same
+// body as flash_kernel (a compile-time flag, off in flash_kernel, so the
+// unwindowed kernels compile as before): a trace tells the two apart. The
+// wgmma route takes none. Three routes, chosen by the wrapper from dtype,
+// head dim and window (never after a failure):
 //
 // wgmma (bf16, D = 64: the LM's): warp-specialised. A block is four
 // warpgroups: three consumers of 64 query rows each (192 per block) and a
@@ -61,8 +70,8 @@
 // a ring of 2 or 4 stages timed as 3 does, and a third consumer
 // warpgroup (more warps to hide the softmax's latencies) was faster than
 // two.
-// mma.sync (bf16, other head dims): one block of 4 warps per 64-row query
-// tile, mma.sync m16n8k16, tiles staged through shared memory with V
+// mma.sync (bf16, other head dims, and D = 64 under a window): one block of
+// 4 warps per 64-row query tile, mma.sync m16n8k16, tiles staged through shared memory with V
 // transposed, P split as above.
 // fp32: FMA on the CUDA cores (tensor cores would round to TF32 and miss
 // the 1e-5 parity), 32 query rows per block, 4 threads per row, each
@@ -105,6 +114,20 @@ __device__ __forceinline__ bool allowed(int kind, int row, int col, int tk) {
   return col < tk && (kind == 0 || (kind == 1 && row >= col));
 }
 
+// kind's mask, and under a window W also row - col < W
+template <bool kWindow>
+__device__ __forceinline__ bool visible(int kind, int row, int col, int tk,
+                                        int window) {
+  return allowed(kind, row, col, tk) && (!kWindow || row - col < window);
+}
+
+// the first K/V tile of bk keys that a window W leaves to query rows from
+// q0 on: the one holding key q0 - W + 1 (0 without a window)
+template <bool kWindow>
+__device__ __forceinline__ int first_tile(int q0, int window, int bk) {
+  return kWindow ? max(0, q0 - window + 1) / bk : 0;
+}
+
 // K/V tiles of bk keys to absorb for query rows up to `last`: kind 1 stops
 // at the diagonal, kind 2 absorbs none.
 __device__ __forceinline__ int tiles_for(int kind, int last, int tk, int bk) {
@@ -120,15 +143,17 @@ namespace fp32 {
 constexpr int BQ = 32;  // query rows per block, 4 threads each
 constexpr int BK = 32;  // keys per shared-memory tile
 
-template <int DP>  // head dim rounded up to 16, 32, 64 or 128
-__global__ void __launch_bounds__(NT)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, Strides qs, Strides ks_,
-             Strides vs_, const float* __restrict__ m_in,
-             const float* __restrict__ l_in, const float* __restrict__ o_in,
-             float* __restrict__ m_out, float* __restrict__ l_out,
-             float* __restrict__ o_out, int heads, int tq, int tk, int dim,
-             int kind, float scale) {
+// DP: head dim rounded up to 16, 32, 64 or 128; kWindow: mask and skip by
+// `window` (flash_window_kernel) or not (flash_kernel)
+template <int DP, bool kWindow>
+__device__ __forceinline__ void absorb(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, Strides qs, Strides ks_, Strides vs_,
+    const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ o_in,
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ o_out, int heads, int tq, int tk, int dim, int kind,
+    int window, float scale) {
   constexpr int DS = DP / 4;  // head-dim values per thread
   __shared__ float ks[BK][DP];
   __shared__ float vs[BK][DP];
@@ -151,7 +176,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float l = live ? l_in[ml] : 0.f;
 
   const int n_tiles = tiles_for(kind, min(q0 + BQ, tq) - 1, tk, BK);
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = first_tile<kWindow>(q0, window, BK); t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // every thread is done with the previous tile
     for (int e = threadIdx.x; e < BK * DP; e += NT) {
@@ -171,7 +196,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < DS; ++i) dot = fmaf(qr[i], ks[j][part + 4 * i], dot);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = allowed(kind, row, k0 + j, tk) ? dot * scale : NEG_INF;
+      s[j] = visible<kWindow>(kind, row, k0 + j, tk, window) ? dot * scale
+                                                              : NEG_INF;
       m_blk = fmaxf(m_blk, s[j]);
     }
     const float m_new = fmaxf(m, m_blk);
@@ -179,7 +205,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      s[j] = allowed(kind, row, k0 + j, tk) ? expf(s[j] - m_new) : 0.f;
+      s[j] = visible<kWindow>(kind, row, k0 + j, tk, window)
+                 ? expf(s[j] - m_new)
+                 : 0.f;
       sum += s[j];
     }
     m = m_new;
@@ -205,6 +233,33 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(NT)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, Strides qs, Strides ks_,
+             Strides vs_, const float* __restrict__ m_in,
+             const float* __restrict__ l_in, const float* __restrict__ o_in,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ o_out, int heads, int tq, int tk, int dim,
+             int kind, float scale) {
+  absorb<DP, false>(q, k, v, qs, ks_, vs_, m_in, l_in, o_in, m_out, l_out,
+                    o_out, heads, tq, tk, dim, kind, 0, scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT)
+flash_window_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, Strides qs, Strides ks_,
+                    Strides vs_, const float* __restrict__ m_in,
+                    const float* __restrict__ l_in,
+                    const float* __restrict__ o_in, float* __restrict__ m_out,
+                    float* __restrict__ l_out, float* __restrict__ o_out,
+                    int heads, int tq, int tk, int dim, int kind, int window,
+                    float scale) {
+  absorb<DP, true>(q, k, v, qs, ks_, vs_, m_in, l_in, o_in, m_out, l_out,
+                   o_out, heads, tq, tk, dim, kind, window, scale);
+}
+
 }  // namespace fp32
 
 // ---------------------------------------------------- bf16, mma.sync route
@@ -228,15 +283,16 @@ __device__ __forceinline__ uint4 load8(const bits* __restrict__ x,
   return *reinterpret_cast<const uint4*>(x + at(s, b, t, h) + c);
 }
 
-template <int DP>  // head dim rounded up to 16, 32, 64 or 128
-__global__ void __launch_bounds__(NT)
-flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
-             const bits* __restrict__ v, Strides qs, Strides kst,
-             Strides vst, const float* __restrict__ m_in,
-             const float* __restrict__ l_in, const float* __restrict__ o_in,
-             float* __restrict__ m_out, float* __restrict__ l_out,
-             float* __restrict__ o_out, int heads, int tq, int tk, int dim,
-             int kind, float scale) {
+// DP: head dim rounded up to 16, 32, 64 or 128; kWindow as in fp32::absorb
+template <int DP, bool kWindow>
+__device__ __forceinline__ void absorb(
+    const bits* __restrict__ q, const bits* __restrict__ k,
+    const bits* __restrict__ v, Strides qs, Strides kst, Strides vst,
+    const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ o_in,
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ o_out, int heads, int tq, int tk, int dim, int kind,
+    int window, float scale) {
   constexpr int CH = DP / 8;  // 16-byte chunks in a row
   // Rows padded by 8 bf16: with row strides of 4 * odd words, a warp's
   // fragment loads (8 rows x 4 words) hit 32 distinct banks.
@@ -285,7 +341,7 @@ flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
   }
 
   const int n_tiles = tiles_for(kind, min(q0 + BQ, tq) - 1, tk, BK);
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = first_tile<kWindow>(q0, window, BK); t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // every warp is done with Q's staging / the last tile
     for (int e = threadIdx.x; e < BK * CH; e += NT) {
@@ -317,7 +373,9 @@ flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = q0 + r0 + 8 * (e / 2);
         const int col = k0 + n * 8 + 2 * tig + e % 2;
-        s[n][e] = allowed(kind, row, col, tk) ? s[n][e] * scale : NEG_INF;
+        s[n][e] = visible<kWindow>(kind, row, col, tk, window)
+                      ? s[n][e] * scale
+                      : NEG_INF;
         mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
       }
     float corr[2], sum[2] = {0.f, 0.f};
@@ -335,8 +393,9 @@ flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = q0 + r0 + 8 * (e / 2);
         const int col = k0 + n * 8 + 2 * tig + e % 2;
-        s[n][e] = allowed(kind, row, col, tk) ? expf(s[n][e] - m[e / 2])
-                                              : 0.f;
+        s[n][e] = visible<kWindow>(kind, row, col, tk, window)
+                      ? expf(s[n][e] - m[e / 2])
+                      : 0.f;
         sum[e / 2] += s[n][e];
       }
 #pragma unroll
@@ -388,6 +447,33 @@ flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
             make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
     }
   }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT)
+flash_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
+             const bits* __restrict__ v, Strides qs, Strides kst,
+             Strides vst, const float* __restrict__ m_in,
+             const float* __restrict__ l_in, const float* __restrict__ o_in,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ o_out, int heads, int tq, int tk, int dim,
+             int kind, float scale) {
+  absorb<DP, false>(q, k, v, qs, kst, vst, m_in, l_in, o_in, m_out, l_out,
+                    o_out, heads, tq, tk, dim, kind, 0, scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NT)
+flash_window_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
+                    const bits* __restrict__ v, Strides qs, Strides kst,
+                    Strides vst, const float* __restrict__ m_in,
+                    const float* __restrict__ l_in,
+                    const float* __restrict__ o_in, float* __restrict__ m_out,
+                    float* __restrict__ l_out, float* __restrict__ o_out,
+                    int heads, int tq, int tk, int dim, int kind, int window,
+                    float scale) {
+  absorb<DP, true>(q, k, v, qs, kst, vst, m_in, l_in, o_in, m_out, l_out,
+                   o_out, heads, tq, tk, dim, kind, window, scale);
 }
 
 }  // namespace tc
@@ -669,14 +755,16 @@ extern "C" {
 // unit-stride head dim; routes 1-3 need 16-byte aligned bases and strides.
 // m, l, m_out, l_out: [batch][heads][tq]; o, o_out: [batch][tq][heads][dim],
 // contiguous fp32. kind: 0 all, 1 causal (call-local row >= col), 2 none.
-// Returns the CUDA error of the launch (0 on success).
+// window: 0 none, else keys col with row - col < window only (routes 0 and
+// 1, through flash_window_kernel). Returns the CUDA error of the launch (0 on
+// success).
 int vtpu_flash_absorb(int route, const void* q, const void* k, const void* v,
                       const long long* strides, const void* m, const void* l,
                       const void* o, void* m_out, void* l_out, void* o_out,
                       int batch, int heads, int tq, int tk, int dim, int kind,
-                      float scale, void* stream) {
+                      int window, float scale, void* stream) {
   if (batch <= 0 || heads <= 0 || tq <= 0 || tk < 0 || dim <= 0
-      || dim > 128 || kind < 0 || kind > 2)
+      || dim > 128 || kind < 0 || kind > 2 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st[3] = {{strides[0], strides[1], strides[2]},
@@ -691,24 +779,47 @@ int vtpu_flash_absorb(int route, const void* q, const void* k, const void* v,
   if (route == 0) {
     const dim3 grid(batch * heads, (tq + fp32::BQ - 1) / fp32::BQ);
     if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = pick(dim, fp32::flash_kernel<16>, fp32::flash_kernel<32>,
-                       fp32::flash_kernel<64>, fp32::flash_kernel<128>);
-    kernel<<<grid, NT, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), st[0], st[1], st[2], mi, li, oi, mo,
-        lo, oo, heads, tq, tk, dim, kind, scale);
+    const auto* fq = static_cast<const float*>(q);
+    const auto* fk = static_cast<const float*>(k);
+    const auto* fv = static_cast<const float*>(v);
+    if (window > 0) {
+      auto kernel = pick(dim, fp32::flash_window_kernel<16>,
+                         fp32::flash_window_kernel<32>,
+                         fp32::flash_window_kernel<64>,
+                         fp32::flash_window_kernel<128>);
+      kernel<<<grid, NT, 0, s>>>(fq, fk, fv, st[0], st[1], st[2], mi, li, oi,
+                                 mo, lo, oo, heads, tq, tk, dim, kind, window,
+                                 scale);
+    } else {
+      auto kernel = pick(dim, fp32::flash_kernel<16>, fp32::flash_kernel<32>,
+                         fp32::flash_kernel<64>, fp32::flash_kernel<128>);
+      kernel<<<grid, NT, 0, s>>>(fq, fk, fv, st[0], st[1], st[2], mi, li, oi,
+                                 mo, lo, oo, heads, tq, tk, dim, kind, scale);
+    }
   } else if (route == 1) {
     const dim3 grid(batch * heads, (tq + tc::BQ - 1) / tc::BQ);
     if (dim % 8 || grid.y > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = pick(dim, tc::flash_kernel<16>, tc::flash_kernel<32>,
-                       tc::flash_kernel<64>, tc::flash_kernel<128>);
-    kernel<<<grid, NT, 0, s>>>(
-        static_cast<const bits*>(q), static_cast<const bits*>(k),
-        static_cast<const bits*>(v), st[0], st[1], st[2], mi, li, oi, mo,
-        lo, oo, heads, tq, tk, dim, kind, scale);
+    const auto* bq = static_cast<const bits*>(q);
+    const auto* bk = static_cast<const bits*>(k);
+    const auto* bv = static_cast<const bits*>(v);
+    if (window > 0) {
+      auto kernel = pick(dim, tc::flash_window_kernel<16>,
+                         tc::flash_window_kernel<32>,
+                         tc::flash_window_kernel<64>,
+                         tc::flash_window_kernel<128>);
+      kernel<<<grid, NT, 0, s>>>(bq, bk, bv, st[0], st[1], st[2], mi, li, oi,
+                                 mo, lo, oo, heads, tq, tk, dim, kind, window,
+                                 scale);
+    } else {
+      auto kernel = pick(dim, tc::flash_kernel<16>, tc::flash_kernel<32>,
+                         tc::flash_kernel<64>, tc::flash_kernel<128>);
+      kernel<<<grid, NT, 0, s>>>(bq, bk, bv, st[0], st[1], st[2], mi, li, oi,
+                                 mo, lo, oo, heads, tq, tk, dim, kind, scale);
+    }
   } else if (route == 2 || route == 3) {
-    if (dim != wg::D || tk == 0 || (tq + wg::BQ - 1) / wg::BQ > 65535)
+    if (dim != wg::D || tk == 0 || window > 0
+        || (tq + wg::BQ - 1) / wg::BQ > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
     return route == 2
         ? wg::launch<true>(q, k, v, st, mi, li, oi, mo, lo, oo, batch, heads,

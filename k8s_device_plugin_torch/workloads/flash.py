@@ -17,7 +17,14 @@ projection need no copy.
 Layouts follow the JAX package: q [B, Tq, H, D], k/v [B, Tk, H, D];
 m/l [B, H, Tq] fp32; o [B, Tq, H, D] fp32. The mask is a runtime ``kind``:
 0 attends to everything, 1 is causal on call-local row >= col, 2 masks
-everything and passes the state through unchanged.
+everything and passes the state through unchanged. A ``window`` W > 0
+narrows it to the keys with row - col < W (kind 1 with W is the sliding
+window: key j is visible to query i iff i - W < j <= i); the kernel then
+never loads the key tiles wholly before the band, and launches as
+``flash_window_kernel``, counted in ``_build.launches["flash_window"]``
+where every other launch counts under ``flash_absorb``. The ``wgmma``
+route takes no window: :func:`absorb_route` sends a windowed bf16 call to
+``mma_sync`` at every head dim, and forcing ``wgmma`` with one raises.
 
 Gradients: where autograd records, :func:`flash_absorb` runs as a
 ``torch.autograd.Function``, the counterpart of the JAX custom VJP
@@ -56,12 +63,15 @@ WGMMA_HEAD_DIM = 64
 #: it misses the LM-case check, see the kernel's header)
 ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2, "wgmma_round_p": 3}
 # route, q, k, v, strides, m, l, o, m_out, l_out, o_out, batch, heads, tq,
-# tk, dim, kind, scale
-FLASH_ABSORB = _build.Kernel(
-    "flash_absorb", "vtpu_flash_absorb",
-    [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 6 + [ctypes.c_float])
+# tk, dim, kind, window, scale
+_ABSORB_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 7 + [ctypes.c_float])
+FLASH_ABSORB = _build.Kernel("flash_absorb", "vtpu_flash_absorb",
+                             _ABSORB_ARGS)
+#: the same entry with a window: counted apart, as its kernel is named apart
+FLASH_WINDOW = _build.Kernel("flash_absorb", "vtpu_flash_absorb",
+                             _ABSORB_ARGS, name="flash_window")
 
 
 def absorb_block_reference(q, k, v, allowed, m, l, o, scale: float):
@@ -87,21 +97,25 @@ def absorb_block_reference(q, k, v, allowed, m, l, o, scale: float):
     return m_new, l_new, o_new
 
 
-def _absorb_reference(q, k, v, kind, m, l, o, scale: float):
+def _absorb_reference(q, k, v, kind, m, l, o, scale: float,
+                      window: int = 0):
     """The kernel's semantics in plain PyTorch: builds the [Tq, Tk] mask
-    from the runtime ``kind`` as the kernel does (call-local rows and
-    columns) and absorbs with :func:`absorb_block_reference`."""
+    from the runtime ``kind`` and ``window`` as the kernel does (call-local
+    rows and columns) and absorbs with :func:`absorb_block_reference`."""
     tq, tk = q.shape[1], k.shape[1]
     rows = torch.arange(tq, device=q.device)[:, None]
     cols = torch.arange(tk, device=q.device)[None, :]
     kind = int(kind)
     allowed = torch.full((tq, tk), kind == 0, device=q.device) \
         | ((kind == 1) & (rows >= cols))
+    if window:
+        allowed &= rows - cols < window
     return absorb_block_reference(q, k, v, allowed, m, l, o, scale)
 
 
-def _check(q, k, v, kind, m, l, o) -> int:
-    """Shapes, dtypes and devices common to both versions; returns kind."""
+def _check(q, k, v, kind, m, l, o, window: int = 0) -> int:
+    """Shapes, dtypes, devices and the window, common to both versions;
+    returns kind."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_absorb: q and k must be [B, T, H, D], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -130,15 +144,20 @@ def _check(q, k, v, kind, m, l, o) -> int:
     kind = int(kind)
     if kind not in (0, 1, 2):
         raise ValueError(f"flash_absorb: kind must be 0, 1 or 2, got {kind}")
+    if int(window) != window or window < 0:
+        raise ValueError(f"flash_absorb: the window must be a whole number "
+                         f">= 0 (0 for none), got {window}")
     return kind
 
 
-def absorb_route(dtype, dim: int, tk: int) -> str:
+def absorb_route(dtype, dim: int, tk: int, window: int = 0) -> str:
     """The kernel route for these shapes: fp32 on FMA; bf16 on wgmma with
-    a TMA ring at head dim 64 (and at least one key), else on mma.sync."""
+    a TMA ring at head dim 64 (with at least one key and no window), else
+    on mma.sync."""
     if dtype == torch.float32:
         return "fma"
-    return "wgmma" if dim == WGMMA_HEAD_DIM and tk > 0 else "mma_sync"
+    return ("wgmma" if dim == WGMMA_HEAD_DIM and tk > 0 and not window
+            else "mma_sync")
 
 
 def check_strides(name: str, t) -> None:
@@ -169,14 +188,14 @@ def _kernel_strides(t) -> list[int]:
     return [sb, st, sh]
 
 
-def _absorb(q, k, v, kind, m, l, o):
+def _absorb(q, k, v, kind, m, l, o, window: int = 0):
     """The absorb's forward: the kernel on a CUDA tensor, the plain absorb
     on a CPU one."""
     if q.device.type == "cpu":
-        kind = _check(q, k, v, kind, m, l, o)
+        kind = _check(q, k, v, kind, m, l, o, window)
         return _absorb_reference(q, k, v, kind, m, l, o,
-                                 1.0 / math.sqrt(q.shape[-1]))
-    return _absorb_kernel(None, q, k, v, kind, m, l, o)
+                                 1.0 / math.sqrt(q.shape[-1]), window)
+    return _absorb_kernel(None, q, k, v, kind, m, l, o, window)
 
 
 class _Absorb(torch.autograd.Function):
@@ -185,9 +204,9 @@ class _Absorb(torch.autograd.Function):
     saved inputs and differentiates it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kind, m, l, o):
-        out = _absorb(q, k, v, kind, m, l, o)
-        ctx.kind = kind
+    def forward(ctx, q, k, v, kind, m, l, o, window):
+        out = _absorb(q, k, v, kind, m, l, o, window)
+        ctx.kind, ctx.window = kind, window
         ctx.save_for_backward(q, k, v, m, l, o)
         ctx.mark_non_differentiable(out[0])  # m: built from detached maxima
         return out
@@ -195,39 +214,42 @@ class _Absorb(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dm, dl, do):
         saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:]
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[4:7]
         with torch.enable_grad(), torch.profiler.record_function(
                 "flash_absorb.backward"):
             inputs = [t.detach().requires_grad_(need)
                       for t, need in zip(saved, needs)]
             q, k, v, m, l, o = inputs
             _, l_new, o_new = _absorb_reference(q, k, v, ctx.kind, m, l, o,
-                                                1.0 / math.sqrt(q.shape[-1]))
+                                                1.0 / math.sqrt(q.shape[-1]),
+                                                ctx.window)
             wrt = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(
                 (l_new, o_new), wrt, (dl, do), allow_unused=True))
         dq, dk, dv, dm_in, dl_in, do_in = (next(grads) if need else None
                                            for need in needs)
-        return dq, dk, dv, None, dm_in, dl_in, do_in
+        return dq, dk, dv, None, dm_in, dl_in, do_in, None
 
 
-def flash_absorb(q, k, v, kind, m, l, o):
-    """One streaming-softmax absorption of K/V into (m, l, o); returns the
-    new state in new tensors (the inputs are not written). Finalize with
+def flash_absorb(q, k, v, kind, m, l, o, window: int = 0):
+    """One streaming-softmax absorption of K/V into (m, l, o), under the
+    mask ``kind`` and ``window`` (0 for none); returns the new state in new
+    tensors (the inputs are not written). Finalize with
     :func:`flash_finalize` once every block has been absorbed.
     Differentiable in q, k, v, l and o (see the module docstring); when
     autograd records nothing the forward runs without the Function."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, m, l, o)):
-        return _Absorb.apply(q, k, v, int(kind), m, l, o)
-    return _absorb(q, k, v, kind, m, l, o)
+        return _Absorb.apply(q, k, v, int(kind), m, l, o, int(window))
+    return _absorb(q, k, v, kind, m, l, o, window)
 
 
-def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
+def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o,
+                   window: int = 0):
     """Launch the kernel by ``route`` (a key of :data:`ROUTES`), or by the
     one :func:`absorb_route` picks when it is None; measurements may force
     another route that takes the same inputs."""
-    kind = _check(q, k, v, kind, m, l, o)
+    kind = _check(q, k, v, kind, m, l, o, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_absorb: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
@@ -244,7 +266,11 @@ def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
     if q.dtype == torch.bfloat16 and dim % 8:
         raise ValueError(f"flash_absorb: bf16 needs a head dim that is a "
                          f"multiple of 8, got {dim}")
-    route = route or absorb_route(q.dtype, dim, tk)
+    window = int(window)
+    if window and route and route.startswith("wgmma"):
+        raise ValueError(f"flash_absorb: route {route} takes no window, got "
+                         f"{window}")
+    route = route or absorb_route(q.dtype, dim, tk, window)
     if (route == "fma") != (q.dtype == torch.float32) or (
             route.startswith("wgmma")
             and absorb_route(q.dtype, dim, tk) != "wgmma"):
@@ -260,11 +286,11 @@ def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o):
     strides = (ctypes.c_longlong * 9)(
         *_kernel_strides(q), *_kernel_strides(k), *_kernel_strides(v))
     m_out, l_out, o_out = (torch.empty_like(t) for t in (m, l, o))
-    FLASH_ABSORB(
+    (FLASH_WINDOW if window else FLASH_ABSORB)(
         q, ROUTES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
         m.data_ptr(), l.data_ptr(), o.data_ptr(), m_out.data_ptr(),
         l_out.data_ptr(), o_out.data_ptr(), batch, heads, tq, tk, dim, kind,
-        1.0 / math.sqrt(dim), label=f"flash_absorb ({route})")
+        window, 1.0 / math.sqrt(dim), label=f"flash_absorb ({route})")
     return m_out, l_out, o_out
 
 
@@ -300,15 +326,20 @@ def flash_finalize(m, l, o, dtype):
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    seq_block: int | None = None):
+                    seq_block: int | None = None, window: int = 0):
     """Whole-sequence attention through the absorb (single device).
 
-    Without ``seq_block`` it is one whole-sequence absorb. With it, Q and
-    K/V are walked in aligned chunks of ``seq_block`` (grown so there are
-    at most 16): causal skips the pairs above the diagonal, the diagonal
-    pair runs kind 1 and the pairs below it kind 0, all on carried state.
+    Without ``seq_block`` it is one whole-sequence absorb, under a
+    ``window`` if one is given (causal: query i sees keys i - window < j <=
+    i). With it, Q and K/V are walked in aligned chunks of ``seq_block``
+    (grown so there are at most 16): causal skips the pairs above the
+    diagonal, the diagonal pair runs kind 1 and the pairs below it kind 0,
+    all on carried state; a window is not taken there.
     """
     b, t, h, d = q.shape
+    if window and seq_block is not None:
+        raise ValueError("flash_attention: a window runs as one "
+                         "whole-sequence absorb, without seq_block")
     sb = None
     if seq_block is not None and seq_block < t:
         sb = _fit_tile(t, seq_block)
@@ -316,7 +347,7 @@ def flash_attention(q, k, v, causal: bool = True,
             sb = _cover_tile(t, -(-t // 16))
     if sb is None or sb >= t:
         m, l, o = flash_state(q)
-        m, l, o = flash_absorb(q, k, v, 1 if causal else 0, m, l, o)
+        m, l, o = flash_absorb(q, k, v, 1 if causal else 0, m, l, o, window)
         return flash_finalize(m, l, o, q.dtype)
 
     nb = t // sb

@@ -28,8 +28,8 @@ The layer equations, over the residual stream x [B, T, D]:
   (``swiglu.swiglu_gate``, as between the experts' products); of the
   rest, ``moe.SigmoidMoE``: sigmoid scores over ``experts``, the top
   ``top_k`` of score + expert bias, gates the selected scores over their
-  sum (+ 1e-6), times 1.0, every token reaching its experts (grouped
-  products on a card);
+  sum (+ 1e-6), times ``route_scale`` (1.0), every token reaching its
+  experts (grouped products on a card);
 - the logits: RMSNorm_final(x_T) E^T at the last position only, in fp32,
   the head E [V, D] tied to the embedding table (``Lfm2MoeConfig``'s
   default; the published config states no ``tie_word_embeddings``).
@@ -87,6 +87,8 @@ class LFM2Config:
     conv_taps: int = 3
     rope_theta: float = 1e6
     eps: float = 1e-5
+    #: the gates' factor, the published ``routed_scaling_factor``
+    route_scale: float = 1.0
 
 
 LFM2_8B_A1B = LFM2Config()
@@ -189,7 +191,8 @@ class LFM2Layer(nn.Module):
             self.ffn = SwiGLU(cfg.dim, cfg.ffn_hidden, dtype)
         else:
             self.moe = SigmoidMoE(cfg.dim, cfg.expert_hidden, cfg.experts,
-                                  cfg.top_k, dtype)
+                                  cfg.top_k, dtype,
+                                  route_scale=cfg.route_scale)
 
     def forward(self, x, cos, sin):
         u = rms_norm(x, self.op_norm, self.eps)

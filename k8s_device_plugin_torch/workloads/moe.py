@@ -27,15 +27,19 @@ loss (``collectives.reduce_loss``): ``harness.sum_replica_grads`` then sums
 the gate's gradient over the world and the experts' over the axes they are
 not split on.
 
-The drop-free top-k sigmoid layer (:class:`SigmoidMoE`, LFM2-MoE's
-experts; no JAX counterpart) routes every token to its k experts
+The drop-free top-k sigmoid layer (:class:`SigmoidMoE`, LFM2-MoE's and
+AFMoE's experts; no JAX counterpart) routes every token to its k experts
 (:func:`route_sigmoid_topk`) and applies them with no capacity
 (:func:`expert_apply`): the token-expert pairs sorted by expert, each
 expert's SwiGLU on exactly its pairs, the gates folded into the second
 product's input, and each token's k results summed. On bf16 CUDA tensors
 each product is one ``torch._grouped_mm`` over all experts, and the gated
 SwiGLU between them one hand-written pass (``swiglu.swiglu_gate``);
-elsewhere a loop of plain products, one expert at a time.
+elsewhere a loop of plain products, one expert at a time. A layer may
+hold a range of the router's experts (one rank of expert parallelism,
+run without its exchange): it routes over all of them and computes only
+the pairs of those it holds. It may add a shared expert, a dense SwiGLU
+that every token takes.
 """
 
 from __future__ import annotations
@@ -351,53 +355,75 @@ def moe_lm_loss(params: MoELM, tokens, mesh=None,
 
 # ------------------------------------- drop-free top-k sigmoid experts
 
+#: added to the selected scores' sum before the gates divide by it
+#: (LFM2-MoE's; a layer may state its own)
+GATE_EPS = 1e-6
+
+
 class SigmoidMoE(nn.Module):
     """A drop-free top-k expert layer's weights: the ``router`` [D, E], the
-    selection-only ``expert_bias`` [E] (fp32), and the experts' SwiGLU
-    stacks ``w13`` [E, D, 2F] (W1 and W3 side by side) and ``w2`` [E, F,
-    D]. The forward takes tokens [..., D] to the layer's output (without
-    the residual) in the experts' dtype: the router reads the tokens as
-    they come (LFM2 hands it the fp32 norm), the experts in their dtype."""
+    selection-only ``expert_bias`` [E] (fp32), the held experts' SwiGLU
+    stacks ``w13`` [E_held, D, 2F] (W1 and W3 side by side) and ``w2``
+    [E_held, F, D], and the ``shared`` expert if one is given (a module
+    that every token takes, ``lfm2.SwiGLU``). ``held`` = (first, count) holds
+    the router's experts first .. first + count - 1 (default all E); the
+    gates are scaled by the layer's ``route_scale`` and divide by the
+    selected scores' sum + ``gate_eps``. The forward takes tokens [..., D]
+    to the layer's output (without the residual) in the experts' dtype:
+    the held experts' share for the tokens routed to them, plus the shared
+    expert's output. The router reads the tokens as they come (LFM2 and
+    AFMoE hand it the fp32 norm), the experts in their dtype."""
 
     def __init__(self, dim: int, hidden: int, n_experts: int, top_k: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, *,
+                 held: tuple[int, int] | None = None,
+                 shared: nn.Module | None = None, route_scale: float = 1.0,
+                 gate_eps: float = GATE_EPS):
         super().__init__()
-        self.top_k = top_k
+        self.top_k, self.route_scale, self.gate_eps = (top_k, route_scale,
+                                                       gate_eps)
+        first, count = held if held is not None else (0, n_experts)
+        if not 0 <= first < first + count <= n_experts:
+            raise ValueError(f"SigmoidMoE: held experts {first} .. "
+                             f"{first + count - 1} are not among "
+                             f"{n_experts}")
+        #: None when every expert is held here, else the first one held
+        self.first = None if count == n_experts else first
         self.router = nn.Parameter(torch.empty(dim, n_experts, dtype=dtype))
         self.expert_bias = nn.Parameter(torch.empty(n_experts,
                                                     dtype=torch.float32))
-        self.w13 = nn.Parameter(torch.empty(n_experts, dim, 2 * hidden,
+        self.w13 = nn.Parameter(torch.empty(count, dim, 2 * hidden,
                                             dtype=dtype))
-        self.w2 = nn.Parameter(torch.empty(n_experts, hidden, dim,
-                                           dtype=dtype))
+        self.w2 = nn.Parameter(torch.empty(count, hidden, dim, dtype=dtype))
+        if shared is not None:
+            self.shared = shared
 
     def forward(self, h):
         flat = h.reshape(-1, h.shape[-1])
         sel, gates = route_sigmoid_topk(flat, self.router, self.expert_bias,
-                                        self.top_k)
-        return expert_apply(flat.to(self.w13.dtype), sel, gates, self.w13,
-                            self.w2).view(h.shape)
+                                        self.top_k, self.route_scale,
+                                        self.gate_eps)
+        u = flat.to(self.w13.dtype)
+        out = expert_apply(u, sel, gates, self.w13, self.w2, self.first)
+        if hasattr(self, "shared"):
+            out = out + self.shared(u)
+        return out.view(h.shape)
 
 
-#: added to the selected scores' sum before the gates divide by it
-GATE_EPS = 1e-6
-#: the gates' factor, LFM2-8B-A1B's published ``routed_scaling_factor``
-ROUTED_SCALING = 1.0
-
-
-def route_sigmoid_topk(h, router, expert_bias, top_k: int):
+def route_sigmoid_topk(h, router, expert_bias, top_k: int,
+                       scale: float = 1.0, eps: float = GATE_EPS):
     """(selected experts [N, k] long, gates [N, k] fp32) of tokens h [N,
     D]: scores s = sigmoid(h W_router) in fp32 (the product too), the k
     experts of largest s + ``expert_bias`` (the bias selects and never
-    weighs), and g_e = s_e / (sum of the selected s + 1e-6) x
-    :data:`ROUTED_SCALING`."""
+    weighs), and g_e = s_e / (sum of the selected s + ``eps``) x
+    ``scale``."""
     s = torch.sigmoid(h.float() @ router.float())
     _, sel = torch.topk(s + expert_bias.float(), top_k, dim=-1)
     g = s.gather(-1, sel)
-    return sel, g / (g.sum(-1, keepdim=True) + GATE_EPS) * ROUTED_SCALING
+    return sel, g / (g.sum(-1, keepdim=True) + eps) * scale
 
 
-def expert_apply(h, sel, gates, w13, w2):
+def expert_apply(h, sel, gates, w13, w2, first: int | None = None):
     """sum over j of gates[n, j] SwiGLU_{sel[n, j]}(h[n]) for tokens h [N,
     D], in h's dtype: every pair computed, none dropped, and no expert
     computes a token not routed to it. The pairs are sorted by expert
@@ -409,14 +435,29 @@ def expert_apply(h, sel, gates, w13, w2):
     ``swiglu_gate``'s plain version between them. The per-expert pair
     counts of the last call stay on the device as
     ``expert_apply.last_counts`` (:func:`largest_expert_load` reads
-    them)."""
+    them).
+
+    With ``first``, ``w13`` and ``w2`` stack the experts first .. first +
+    E_held - 1 of a wider router: a pair routed to any other adds nothing
+    and is not computed (its gate still counted in the normalisation,
+    which ``gates`` carries)."""
     n, k = sel.shape
     n_experts = w2.shape[0]
-    experts, order = torch.sort(sel.reshape(-1), stable=True)
+    pairs = sel.reshape(-1)
+    if first is not None:
+        # the pairs of experts held elsewhere sort after every held one
+        pairs = pairs - first
+        pairs = torch.where((pairs >= 0) & (pairs < n_experts), pairs,
+                            n_experts)
+    experts, order = torch.sort(pairs, stable=True)
     # each expert's end among the sorted pairs: found on the device, so
     # the host never waits for the routing
     ends = torch.searchsorted(experts, torch.arange(
         1, n_experts + 1, device=sel.device), out_int32=True)
+    if first is not None:
+        # but a partial layer's products need its pairs' count: one wait
+        # for the device a layer
+        order = order[:int(ends[-1])]
     xs = h.index_select(0, order // k)
     g = gates.reshape(-1)[order].to(h.dtype)
     if h.is_cuda and h.dtype == torch.bfloat16:
@@ -433,6 +474,10 @@ def expert_apply(h, sel, gates, w13, w2):
                 ys[rows] = swiglu_gate(xs[rows] @ w13[e], g[rows]) @ w2[e]
                 start = end
     expert_apply.last_counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    if first is not None:
+        # back to token order, the pairs held elsewhere zero
+        back = ys.new_zeros(n * k, ys.shape[-1]).index_copy_(0, order, ys)
+        return back.view(n, k, -1).sum(dim=1)
     # back to token order: pair p was sorted to row place[p]
     place = torch.empty_like(order)
     place[order] = torch.arange(len(order), device=order.device)

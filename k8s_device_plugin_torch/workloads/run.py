@@ -10,10 +10,12 @@ Every model and mode of the JAX runner is ported: ``resnet50``,
 infer`` and ``--mode train`` (on one card their attention runs through the
 flash-absorb kernel, in training with the recompute backward) and ``--mode
 decode`` (KV-cache serving). ``lfm2_moe``, LFM2-8B-A1B at its published
-widths (``lfm2.py``; no JAX counterpart), is built here
-(:func:`build_model`) for the benchmark's tenant, which fills it with its
-seeded weights (``vgpu_bench.tenant.build``; ``chip_smoke.py`` serves it
-so), and is no runner case. Under ``VTPU_COMPILE_CACHE_DIR`` the kernels
+widths (``lfm2.py``), and ``afmoe``, Trinity-Mini at its published widths
+as rank 0 of 4-way expert parallelism (``afmoe.py``: experts 0-31 of each
+expert layer's 128), neither with a JAX counterpart, are built here
+(:func:`build_model`) for the benchmark's tenant, which fills them with
+its seeded weights (``vgpu_bench.tenant.build``; ``chip_smoke.py`` serves
+LFM2 so), and are no runner cases. Under ``VTPU_COMPILE_CACHE_DIR`` the kernels
 build into the compile cache and the run vouches for
 ``VTPU_COMPILE_CACHE_KEY`` after its first call
 (``harness.setup_compile_cache``).
@@ -88,8 +90,12 @@ def build_model(name: str, dtype: torch.dtype, size: int,
     fused cell's layout on the card (K2, weights in ``dtype`` as the JAX
     cell declares them) and the stock layout elsewhere, as the JAX runner
     takes ``use_pallas=on_tpu``. ``lfm2_moe`` is LFM2-8B-A1B at its
-    published widths (``lfm2.LFM2MoE``), for inference only; its ``size``
-    is the prompt length and does not shape the model."""
+    published widths (``lfm2.LFM2MoE``) and ``afmoe`` Trinity-Mini's rank
+    0 of 4-way expert parallelism (``afmoe.AFMoE`` at
+    ``afmoe.TRINITY_MINI_EP4``; a configuration of the benchmark that
+    holds other experts is refused by its tenant's layout check, on
+    ``experts_held``), both for inference only; their ``size`` is the
+    prompt length and does not shape the model."""
     from .deeplab import DeepLabV3
     from .lstm import LSTMClassifier
     from .resnet import resnet50, resnet152
@@ -110,6 +116,11 @@ def build_model(name: str, dtype: torch.dtype, size: int,
             raise SystemExit("lfm2_moe runs inference only")
         from .lfm2 import LFM2MoE
         return LFM2MoE(dtype=dtype)
+    if name == "afmoe":
+        if train:
+            raise SystemExit("afmoe runs inference only")
+        from .afmoe import AFMoE, TRINITY_MINI_EP4
+        return AFMoE(TRINITY_MINI_EP4, dtype=dtype)
     raise SystemExit(f"unknown model {name}")
 
 

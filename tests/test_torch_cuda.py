@@ -16,8 +16,9 @@ import torch
 import chip_smoke
 from k8s_device_plugin_torch import _build
 from k8s_device_plugin_torch.monitor import dutyprobe
-from k8s_device_plugin_torch.workloads import (bn_relu, flash, harness,
-                                               lfm2, moe, pallas_ops, resnet)
+from k8s_device_plugin_torch.workloads import (afmoe, bn_relu, flash,
+                                               harness, lfm2, moe, pallas_ops,
+                                               resnet)
 from k8s_device_plugin_torch.workloads.lstm import LSTMClassifier
 
 pytestmark = pytest.mark.cuda
@@ -896,3 +897,153 @@ def test_lfm2_attention_takes_k3_wgmma(cuda):
                if "flash_kernel" in e.key]
     assert len(absorbs) == 1 and "wg::" in absorbs[0][0], absorbs
     assert absorbs[0][1] == 1 and out.shape == u.shape
+
+
+def _banded(kind, tq, tk, window, device):
+    """K3's mask under a window: kind's, and row - col < window."""
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    return _allowed(kind, tq, tk, device) & (rows - cols < window)
+
+
+# windows inside a 64-key tile, on its edge, straddling two or more tiles,
+# and wider than the sequence; T ends mid-tile (300) or wraps many tiles
+@pytest.mark.parametrize("window", [1, 50, 64, 100, 257, 2048])
+@pytest.mark.parametrize("tq", [300, 1000])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_window_matches_plain_at_head_dim_128(cuda, dtype, tol, tq,
+                                                    window):
+    """K3's window on its FMA (fp32) and mma.sync (bf16) routes at head dim
+    128, against the plain absorb under the band's mask, on a carried state
+    that is not the identity: one launch, counted under ``flash_window``.
+    fp32 at the LM tests' 1e-4: over up to 1000 keys the kernel's rescaled
+    running sums round otherwise than one product does."""
+    q, k, v, m, l, o = _flash_args(1, tq, tq, 2, 128, dtype, cuda, seed=6)
+    before = dict(_build.launches)
+    got = flash.flash_absorb(q, k, v, 1, m, l, o, window)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_window"] == before.get("flash_window",
+                                                         0) + 1
+    assert _build.launches["flash_absorb"] == before.get("flash_absorb", 0)
+    want = flash.absorb_block_reference(
+        q, k, v, _banded(1, tq, tq, window, cuda), m, l, o, 128 ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,dim", [(torch.bfloat16, 128),
+                                       (torch.bfloat16, 64),
+                                       (torch.float32, 128)])
+def test_flash_window_past_the_sequence_is_the_causal_absorb(cuda, dtype,
+                                                             dim):
+    """A window as wide as the sequence masks nothing more: the windowed
+    kernel gives the causal kernel's bits (the same body, the band's test
+    always true), on the route the window takes."""
+    q, k, v, m, l, o = _flash_args(2, 333, 333, 3, dim, dtype, cuda, seed=7)
+    route = "fma" if dtype == torch.float32 else "mma_sync"
+    got = flash._absorb_kernel(route, q, k, v, 1, m, l, o, 333)
+    want = flash._absorb_kernel(route, q, k, v, 1, m, l, o)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_window_is_refused_by_the_wgmma_route(cuda):
+    """The wgmma route takes no window: forced, it raises; by default a
+    windowed call at head dim 64 takes mma.sync, and the causal call at
+    LFM2's head dim still takes wgmma."""
+    q, k, v, m, l, o = _flash_args(1, 100, 100, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="takes no window"):
+        flash._absorb_kernel("wgmma", q, k, v, 1, m, l, o, 16)
+    assert flash.absorb_route(torch.bfloat16, 64, 100, 16) == "mma_sync"
+    assert flash.absorb_route(torch.bfloat16, 64, 100) == "wgmma"
+    got = flash.flash_absorb(q, k, v, 1, m, l, o, 16)
+    want = flash.absorb_block_reference(
+        q, k, v, _banded(1, 100, 100, 16, cuda), m, l, o, 64 ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+
+
+def _trinity_config():
+    with open(os.path.join(REPO, "vgpu_bench", "configs",
+                           "trinity-mini.ep4-prefill16k.json")) as f:
+        return json.load(f)
+
+
+def test_trinity_forward_counts_its_kernels(cuda):
+    """A bf16 forward of Trinity-Mini at its published widths as rank 0 of
+    4-way expert parallelism, built by the benchmark's tenant, on one
+    prompt of 4096 embeddings (two windows): 24 windowed and 8 causal K3
+    launches, 30 grouped expert applies and 62 K6 passes (2 dense, 30
+    shared, 30 routed), and finite logits over the whole vocabulary."""
+    from vgpu_bench import tenant
+    model = tenant.build(_trinity_config(), 0, cuda)
+    x = torch.randn(1, 4096, 2048, device=cuda).to(torch.bfloat16)
+    counters = ("flash_window", "flash_absorb", "expert_apply",
+                "swiglu_gate")
+    before = [_build.launches[c] for c in counters]
+    logits = harness.make_infer_fn(model)(x)
+    torch.cuda.synchronize()
+    assert [_build.launches[c] - b for c, b in zip(counters, before)] == [
+        24, 8, 30, 62]
+    assert logits.shape == (1, 200192) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    del model
+    torch.cuda.empty_cache()
+
+
+def test_trinity_attention_takes_k3_mma_sync(cuda):
+    """Trinity's attention (32 query heads over 4 KV heads of 128) runs K3
+    on its ``mma_sync`` route: a sliding layer launches one
+    ``tc::flash_window_kernel``, a full layer one ``tc::flash_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+    attn = afmoe.Attention(afmoe.TRINITY_MINI, torch.bfloat16).to(cuda)
+    with torch.no_grad():
+        for p in (attn.wqkvg, attn.wo):
+            p.normal_(0.0, 0.02)
+        attn.q_norm.fill_(1.0)
+        attn.k_norm.fill_(1.0)
+    u = torch.randn(1, 3000, 2048, device=cuda).to(torch.bfloat16)
+    cos, sin = afmoe.rope_tables(torch.arange(3000, device=cuda), 128, 1e4)
+    names = {}
+    for window in (2048, 0):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                torch.inference_mode():
+            out = afmoe.attention(u, attn, cos, sin, 1e-5, window)
+            torch.cuda.synchronize()
+        names[window] = [(e.key, e.count) for e in prof.key_averages()
+                         if "flash_" in e.key and "_kernel" in e.key]
+        assert out.shape == u.shape
+    assert len(names[2048]) == 1 and "tc::flash_window_kernel" in \
+        names[2048][0][0] and names[2048][0][1] == 1, names
+    assert len(names[0]) == 1 and "tc::flash_kernel" in names[0][0][0] \
+        and names[0][0][1] == 1, names
+
+
+def test_held_expert_share_matches_the_cpu_loop(cuda):
+    """One expert layer of Trinity-Mini's rank 0 (32 of 128 experts of
+    1024 held, top 8) on 4096 tokens: the grouped products on the card
+    over the held pairs only against the loop of plain fp32 products on the
+    CPU, on the same routed tokens; about a quarter of the pairs held."""
+    g = torch.Generator(cuda).manual_seed(0)
+    layer = moe.SigmoidMoE(2048, 1024, 128, 8, dtype=torch.bfloat16,
+                           held=(0, 32)).to(cuda)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            # the expert bias as the configuration draws it, std 0.05
+            std = 0.05 if name == "expert_bias" else p.shape[-2] ** -0.5
+            p.normal_(0.0, std, generator=g)
+    h = torch.randn(4096, 2048, device=cuda, generator=g).to(torch.bfloat16)
+    sel, gates = moe.route_sigmoid_topk(h, layer.router, layer.expert_bias,
+                                        8, 2.826, 1e-20)
+    before = _build.launches["expert_apply"]
+    with torch.inference_mode():
+        got = moe.expert_apply(h, sel, gates, layer.w13, layer.w2, 0)
+    assert _build.launches["expert_apply"] == before + 1
+    held = int(moe.expert_apply.last_counts.sum())
+    assert held == int((sel < 32).sum()) and 0.15 < held / (4096 * 8) < 0.35
+    want = moe.expert_apply(h.cpu().float(), sel.cpu(), gates.cpu(),
+                            layer.w13.cpu().float(), layer.w2.cpu().float(),
+                            0)
+    err = (got.cpu().float() - want).abs().max() / want.abs().max()
+    assert err < 2e-2, err

@@ -52,7 +52,7 @@ def as_config(c: lfm2.LFM2Config, dtype: str = "float32", batch: int = 2,
             "num_key_value_heads": c.kv_heads, "head_dim": c.head_dim,
             "vocab_size": c.vocab, "conv_L_cache": c.conv_taps,
             "rope_theta": c.rope_theta, "norm_eps": c.eps,
-            "routed_scaling_factor": moe.ROUTED_SCALING, "batch": batch,
+            "routed_scaling_factor": c.route_scale, "batch": batch,
             "seq": seq, "input_shape": [batch, seq, c.dim]}
 
 

@@ -26,10 +26,10 @@ Phases, one JSON line each; any failure exits non-zero:
    per-step K2 launches (``kernel_lstm_sequence``: ms a call, us a step,
    the plain loop's, the K2 loop's and cuDNN's LSTM's device time, and
    the call's bound); K3 at Trinity-Mini's shape ([1, 16384, 32, 128]
-   bf16, K and V expanded from 4 heads, ``mma_sync``) under its window of
+   bf16, K and V expanded from 4 heads, ``wgmma``) under its window of
    2048 (``flash_window_kernel``) and causal, each against the plain
-   absorb computed in query blocks and timed against its bound
-   (``kernel_flash_window``);
+   absorb computed in query blocks and timed against its bound, beside
+   the forced ``mma_sync`` launch (``kernel_flash_window``);
 4. gradients: the flash absorb's ``autograd.Function`` (K3 forward,
    recompute backward) against dense attention's gradients, in fp32, and
    in bf16 at the LM's train chunking and at the MoE LM's whole-sequence
@@ -106,8 +106,8 @@ Phases, one JSON line each; any failure exits non-zero:
    and serves it (rank 0 of 4-way expert parallelism, one prompt of
    16,384 embeddings): 24 windowed K3 absorbs, 8 causal ones, 30 grouped
    expert applies and 62 K6 passes a forward (else it fails), the
-   windowed launches as ``tc::flash_window_kernel<128>`` and the causal
-   ones as ``tc::flash_kernel<128>`` in the trace, and the forward's
+   windowed launches as ``wg::flash_window_kernel<128>`` and the causal
+   ones as ``wg::flash_kernel<128`` in the trace, and the forward's
    profile;
 14. correctness: the models on the card against the same weights on the
    CPU at small inputs (the MoE LM with its count of routing decisions
@@ -897,14 +897,16 @@ def _launch_ms(fn, kernel: str, iters: int) -> tuple[float, int]:
 def phase_flash_window_kernel() -> dict:
     """K3 at Trinity-Mini's shape, [1, 16384, 32, 128] bf16 with K and V
     expanded from 4 heads as ``afmoe.attention`` expands them, identity
-    state, on its ``mma_sync`` route: under the window of 2048 (one
-    ``flash_window_kernel`` launch, counted under ``flash_window``) and
-    causal (one ``flash_kernel`` launch), each against the plain absorb
-    computed in query blocks (:func:`_blocked_absorb`) on m, l, o and the
-    finalized output (tolerance 2e-2, as the LM case), and each timed
-    against its bound from ``vgpu_bench/counts/afmoe.py``'s
-    ``kernel_cost`` (the larger of its bytes at 3.35 TB/s and its FLOP at
-    989 TFLOP/s) by the mean of the launches traced (:func:`_launch_ms`).
+    state, on its ``wgmma`` route (else it fails): under the window of
+    2048 (one ``flash_window_kernel`` launch, counted under
+    ``flash_window``) and causal (one ``flash_kernel`` launch), each
+    against the plain absorb computed in query blocks
+    (:func:`_blocked_absorb`) on m, l, o and the finalized output
+    (tolerance 2e-2, as the LM case), and each timed against its bound
+    from ``vgpu_bench/counts/afmoe.py``'s ``kernel_cost`` (the larger of
+    its bytes at 3.35 TB/s and its FLOP at 989 TFLOP/s) by the mean of the
+    launches traced (:func:`_launch_ms`); beside it the same launch forced
+    onto the ``mma_sync`` route (``tc::``), its error and its time.
     Returns the windowed launch's ``kernels`` entry."""
     import torch
     from k8s_device_plugin_torch import _build
@@ -923,6 +925,8 @@ def phase_flash_window_kernel() -> dict:
     lines = {}
     for name, w in (("flash_window", window), ("flash_absorb", 0)):
         route = flash.absorb_route(q.dtype, dim, seq, w)
+        if route != "wgmma":
+            raise AssertionError(f"flash_absorb window {w}: route {route}")
         _build.launches.clear()
         got = flash.flash_absorb(q, k, v, 1, m, l, o, w)
         launched = {n: _build.launches[n]
@@ -939,10 +943,20 @@ def phase_flash_window_kernel() -> dict:
             f"flash_absorb Trinity window {w} finalized",
             flash.flash_finalize(*got, bf16),
             flash.flash_finalize(*want, bf16), 2e-2)
-        del got, want
+        del got
+        forced = flash._absorb_kernel("mma_sync", q, k, v, 1, m, l, o, w)
+        mma_sync_err = check_close(
+            f"flash_absorb Trinity window {w} mma_sync finalized",
+            flash.flash_finalize(*forced, bf16),
+            flash.flash_finalize(*want, bf16), 2e-2)
+        del forced, want
+        kernel = "flash_window_kernel<" if w else "flash_kernel<"
         ms, traced = _launch_ms(
             lambda w=w: flash.flash_absorb(q, k, v, 1, m, l, o, w),
-            "tc::flash_window_kernel<" if w else "tc::flash_kernel<", 5)
+            "wg::" + kernel, 5)
+        mma_sync_ms, _ = _launch_ms(
+            lambda w=w: flash._absorb_kernel("mma_sync", q, k, v, 1, m, l,
+                                             o, w), "tc::" + kernel, 3)
         plain_ms, _ = device_ms(
             lambda w=w: _blocked_absorb(q, k, v, m, l, o, w), 1, warmup=1)
         flops, nbytes = cost[name]
@@ -954,7 +968,10 @@ def phase_flash_window_kernel() -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "share_of_bound": bound_ms / ms, "flops": flops,
-            "bytes": nbytes}
+            "bytes": nbytes,
+            "mma_sync": {"ms": mma_sync_ms,
+                         "share_of_bound": bound_ms / mma_sync_ms,
+                         "max_abs_err_finalized": mma_sync_err}}
     emit("kernel_flash_window", shape=list(q.shape), dtype="bfloat16",
          kind=1, window=lines["flash_window"], causal=lines["flash_absorb"],
          window_over_causal_ms=lines["flash_window"]["ms"]
@@ -2705,8 +2722,8 @@ def phase_afmoe() -> dict:
     (``vgpu_bench.tenant.build`` on the seed's weights, the first input of
     its pool, one prompt of 16,384 embeddings): the counters of one
     forward, set to 0 just before it (:data:`AFMOE_COUNTS`, else it
-    fails), its K3 launches in the trace as ``tc::flash_window_kernel<128>``
-    (24) and ``tc::flash_kernel<128>`` (8), the logits finite at [1,
+    fails), its K3 launches in the trace as ``wg::flash_window_kernel<128>``
+    (24) and ``wg::flash_kernel<128`` (8), the logits finite at [1,
     vocab], the build's peak memory and the forward's profile (3 timed).
     Returns the forward's launches of every port kernel, as the main
     paths' (``afmoe_forward``)."""
@@ -2737,8 +2754,8 @@ def phase_afmoe() -> dict:
                              f"{AFMOE_COUNTS}")
     traced = {name: sum(e.count for e in prof.key_averages()
                         if name in e.key)
-              for name in ("tc::flash_window_kernel<128>",
-                           "tc::flash_kernel<128>")}
+              for name in ("wg::flash_window_kernel<128>",
+                           "wg::flash_kernel<128")}
     if list(traced.values()) != [24, 8]:
         raise AssertionError(f"afmoe: K3's kernels in the trace {traced}")
     if tuple(logits.shape) != (1, model.cfg.vocab) or not bool(

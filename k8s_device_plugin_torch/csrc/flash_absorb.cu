@@ -38,41 +38,50 @@
 // copies the state bit for bit. A window W starts each query tile's key
 // loop at the tile that holds key q0 - W + 1 (q0 the tile's first row), so
 // the tiles wholly before the band are never loaded; the band's edge is
-// masked element by element. The fp32 and mma.sync routes take a window,
-// each through a kernel of its own name, flash_window_kernel, over the same
-// body as flash_kernel (a compile-time flag, off in flash_kernel, so the
-// unwindowed kernels compile as before): a trace tells the two apart. The
-// wgmma route takes none. Three routes, chosen by the wrapper from dtype,
-// head dim and window (never after a failure):
+// masked element by element. Every route takes a window, each through a
+// kernel of its own name, flash_window_kernel, over the same body as
+// flash_kernel (a compile-time flag, off in flash_kernel, so the
+// unwindowed kernels compile as before): a trace tells the two apart.
+// Three routes, chosen by the wrapper from dtype and head dim (never after
+// a failure):
 //
-// wgmma (bf16, D = 64: the LM's): warp-specialised. A block is four
-// warpgroups: three consumers of 64 query rows each (192 per block) and a
-// producer whose one thread issues TMA loads (cp.async.bulk.tensor over the
+// wgmma (bf16, D = 64, the LM's and LFM2's, and D = 128, Trinity's):
+// warp-specialised. A block is a producer warpgroup and consumer
+// warpgroups of 64 query rows each: three at D = 64 (192 rows a block),
+// two at D = 128 (128 rows), whose O alone is 64 registers a thread. The
+// producer's one thread issues TMA loads (cp.async.bulk.tensor over the
 // 4-D [B, T, H, D] view, so strides come from the tensor map and the ragged
 // T edge of each batch is zero-filled by the hardware) into a ring of
 // STAGES K/V tiles in shared memory, with full/empty mbarriers per stage.
-// Q is loaded once per block the same way. setmaxnreg moves the
-// producer's registers to the consumers. TMA writes 128-byte-swizzled
-// rows, which are the wgmma descriptors' layout: S = Q K^T is wgmma
-// m64n64k16 with Q and K from shared memory (both K-major); O += P V is
-// wgmma with P from registers (the S accumulator's layout is the A
+// Q is loaded once per block the same way. A row of D bf16 is loaded as
+// D / 64 panels of 64 columns, each a box of its own (a 128-byte swizzled
+// box is at most 128 bytes wide). setmaxnreg moves the producer's
+// registers to the consumers. TMA writes 128-byte-swizzled rows, which are
+// the wgmma descriptors' layout: S = Q K^T is wgmma m64n64k16 with Q and K
+// from shared memory (both K-major), D / 16 steps, each in its panel; O +=
+// P V is wgmma with P from registers (the S accumulator's layout is the A
 // fragment's, so P never leaves registers) and V read in its natural
-// [keys, D] layout as a transposed (MN-major) B: no transposing stores.
+// [keys, D] layout as a transposed (MN-major) B: no transposing stores; at
+// D = 128 one m64n128k16 a step spans both V panels (the descriptor's
+// leading byte offset is the panel stride). Under a window the producer
+// starts the ring at the block's first tile of the band and each consumer
+// at its own rows' first, waiting on and releasing the tiles it skips.
 // Softmax uses exp2 with log2(e)/sqrt(D) folded into one FMA; masks are
-// evaluated only on tiles that cross the diagonal or the Tk edge. P is
-// not rounded to bf16 (the TPU kernel keeps it in fp32): each p is split
-// into a bf16 pair, hi + lo, and P V runs once for each, so p keeps 16
-// significant bits. Rounding p to bf16 instead cost 0.058 in the
-// unnormalized o at the LM case (tolerance 2e-2), where up to 2048 rounded
-// terms add up before the divide by l; that variant is built too, for
-// measurement only (route 3). At the LM case the kernel is bound by the
-// consumers' instruction issue (softmax and the split), not by its loads:
-// a ring of 2 or 4 stages timed as 3 does, and a third consumer
-// warpgroup (more warps to hide the softmax's latencies) was faster than
-// two.
-// mma.sync (bf16, other head dims, and D = 64 under a window): one block of
-// 4 warps per 64-row query tile, mma.sync m16n8k16, tiles staged through shared memory with V
-// transposed, P split as above.
+// evaluated only on tiles that cross the diagonal, the band's lower edge
+// or the Tk edge. P is not rounded to bf16 (the TPU kernel keeps it in
+// fp32): each p is split into a bf16 pair, hi + lo, and P V runs once for
+// each, so p keeps 16 significant bits. Rounding p to bf16 instead cost
+// 0.058 in the unnormalized o at the LM case (tolerance 2e-2), where up to
+// 2048 rounded terms add up before the divide by l; that variant is built
+// too, at D = 64 without a window, for measurement only (route 3). At the
+// LM case the kernel is bound by the consumers' instruction issue (softmax
+// and the split), not by its loads: a ring of 2 or 4 stages timed as 3
+// does, and a third consumer warpgroup (more warps to hide the softmax's
+// latencies) was faster than two. At D = 128 each P element carries twice
+// the products, so the tensor cores' share of the time is larger.
+// mma.sync (bf16, other head dims; forced, any): one block of 4 warps per
+// 64-row query tile, mma.sync m16n8k16, tiles staged through shared memory
+// with V transposed, P split as above.
 // fp32: FMA on the CUDA cores (tensor cores would round to TF32 and miss
 // the 1e-5 parity), 32 query rows per block, 4 threads per row, each
 // holding every 4th value of the head dim; the dot products reduce across
@@ -482,49 +491,64 @@ flash_window_kernel(const bits* __restrict__ q, const bits* __restrict__ k,
 
 namespace wg {
 
-constexpr int D = 64;        // the head dim this route serves: 128-byte rows
-constexpr int CW = 3;        // consumer warpgroups, 64 query rows each
-constexpr int BQ = 64 * CW;  // query rows per block
-constexpr int BK = 64;       // keys per K/V tile
-constexpr int STAGES = 3;    // K/V tiles in flight
-constexpr int NT = 128 * (CW + 1);  // consumers 0 .. CW-1, producer CW
+constexpr int BK = 64;    // keys per K/V tile
+constexpr int ROW = 128;  // bytes of one swizzled row: 64 bf16 of a panel
+constexpr int PANEL = BK * ROW;  // 8 KB: 64 head-dim columns of a K/V tile
+constexpr int PRODUCER_REGS = 24;
+
+// The shape of a block at head dim D (64 or 128). A row of D bf16 is D / 64
+// panels of 64 columns, each TMA-loaded as its own box (a 128-byte-swizzled
+// box is at most 128 bytes wide) into a region of its own. D = 64 runs
+// three consumer warpgroups; D = 128 two, which leaves each 240 registers
+// for O (64 a thread), S (32) and P's hi and lo fragments (32).
 // Registers: the block is launched with 65536 / NT each (in steps of 8);
 // the producer gives up all but PRODUCER_REGS and the consumers take them.
 // setmaxnreg.inc waits until what it asks for is free, so asking for more
 // than the block holds would hang.
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS =
-    (65536 / NT / 8 * 8 * NT - 128 * PRODUCER_REGS) / (128 * CW) / 8 * 8;
-constexpr int ROW = D * 2;   // bytes of one swizzled row
-constexpr int TILE = BK * ROW;  // 8 KB
-constexpr int QBYTES = BQ * ROW;  // 24 KB
-// tiles on 1024-byte boundaries (the swizzle atom), then 2 * STAGES + 1
-// mbarriers; 1024 bytes of slack to align the dynamic buffer
-constexpr int SMEM = 1024 + QBYTES + 2 * STAGES * TILE + 8 * (2 * STAGES + 1);
+template <int D>
+struct Shape {
+  static constexpr int PANELS = D / 64;
+  static constexpr int CW = D == 64 ? 3 : 2;  // consumers, 64 query rows each
+  static constexpr int BQ = 64 * CW;          // query rows per block
+  static constexpr int STAGES = 3;            // K/V tiles in flight
+  static constexpr int NT = 128 * (CW + 1);   // consumers 0 .. CW-1, producer CW
+  static constexpr int CONSUMER_REGS =
+      (65536 / NT / 8 * 8 * NT - 128 * PRODUCER_REGS) / (128 * CW) / 8 * 8;
+  static constexpr int QPANEL = BQ * ROW;       // one panel of the Q block
+  static constexpr int QBYTES = PANELS * QPANEL;
+  static constexpr int TILE = PANELS * PANEL;   // one K or V tile
+  // tiles on 1024-byte boundaries (the swizzle atom), then 2 * STAGES + 1
+  // mbarriers; 1024 bytes of slack to align the dynamic buffer
+  static constexpr int SMEM =
+      1024 + QBYTES + 2 * STAGES * TILE + 8 * (2 * STAGES + 1);
+};
 
 // descriptors: K-major (Q, K: the head dim contiguous) and MN-major (V:
 // the head dim, wgmma's N, contiguous); either way 8-row groups of 128-byte
-// rows are 1024 bytes apart (SBO); LBO is unused at these widths
+// rows are 1024 bytes apart (SBO). LBO is unused for 64 columns; an N of
+// 128 spans V's two panels, a panel (PANEL bytes) apart.
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return sm90::sw128_desc(addr, 1, 1024 >> 4);
 }
 
-// Accumulator layout of m64n64 (warp w of the warpgroup, g = lane / 4,
+// The body of flash_kernel (kWindow false) and flash_window_kernel.
+// Accumulator layout of m64nN (warp w of the warpgroup, g = lane / 4,
 // tig = lane % 4): element 4j + e at row 16w + g + 8(e/2), column
 // 8j + 2tig + e%2; for S the column is a key, for O a head-dim index.
-template <bool kSplitP>
-__global__ void __launch_bounds__(NT, 1)
-flash_kernel(const __grid_constant__ CUtensorMap q_map,
-             const __grid_constant__ CUtensorMap k_map,
-             const __grid_constant__ CUtensorMap v_map,
-             const float* __restrict__ m_in, const float* __restrict__ l_in,
-             const float* __restrict__ o_in, float* __restrict__ m_out,
-             float* __restrict__ l_out, float* __restrict__ o_out, int heads,
-             int tq, int tk, int kind, float scale) {
+template <int D, bool kSplitP, bool kWindow>
+__device__ __forceinline__ void absorb(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, const float* __restrict__ o_in,
+    float* __restrict__ m_out, float* __restrict__ l_out,
+    float* __restrict__ o_out, int heads, int tq, int tk, int kind,
+    int window, float scale) {
+  using S = Shape<D>;
+  constexpr int STAGES = S::STAGES, CW = S::CW, BQ = S::BQ, TILE = S::TILE;
   extern __shared__ uint8_t raw[];
   const uint32_t base = (sm90::smem_u32(raw) + 1023) & ~1023u;
   const uint32_t sq = base;
-  const uint32_t sk = sq + QBYTES;           // STAGES K tiles
+  const uint32_t sk = sq + S::QBYTES;        // STAGES K tiles
   const uint32_t sv = sk + STAGES * TILE;    // STAGES V tiles
   const uint32_t bars = sv + STAGES * TILE;  // full[S], empty[S], q
   auto full = [&](int s) { return bars + 8 * s; };
@@ -534,6 +558,8 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int n_tiles = tiles_for(kind, min(q0 + BQ, tq) - 1, tk, BK);
+  // the block's first tile; the ring counts from it
+  const int t0 = first_tile<kWindow>(q0, window, BK);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -549,32 +575,41 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   if (group == CW) {  // producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 128 * CW) {
-      sm90::mbar_expect_tx(qbar, QBYTES);
-      sm90::tma_load_4d(sq, &q_map, qbar, 0, h, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES)  // both consumers are done with tile t - STAGES
-          sm90::mbar_wait(empty(s), (t / STAGES - 1) & 1);
+      sm90::mbar_expect_tx(qbar, S::QBYTES);
+#pragma unroll
+      for (int p = 0; p < S::PANELS; ++p)
+        sm90::tma_load_4d(sq + p * S::QPANEL, &q_map, qbar, 64 * p, h, q0, b);
+      for (int t = t0; t < n_tiles; ++t) {
+        const int n = t - t0, s = n % STAGES;
+        if (n >= STAGES)  // every consumer is done with tile t - STAGES
+          sm90::mbar_wait(empty(s), (n / STAGES - 1) & 1);
         sm90::mbar_expect_tx(full(s), 2 * TILE);
-        sm90::tma_load_4d(sk + s * TILE, &k_map, full(s), 0, h, t * BK, b);
-        sm90::tma_load_4d(sv + s * TILE, &v_map, full(s), 0, h, t * BK, b);
+#pragma unroll
+        for (int p = 0; p < S::PANELS; ++p)
+          sm90::tma_load_4d(sk + s * TILE + p * PANEL, &k_map, full(s),
+                            64 * p, h, t * BK, b);
+#pragma unroll
+        for (int p = 0; p < S::PANELS; ++p)
+          sm90::tma_load_4d(sv + s * TILE + p * PANEL, &v_map, full(s),
+                            64 * p, h, t * BK, b);
       }
     }
     return;
   }
 
   // consumer warpgroup `group`: 64 query rows from row0
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int g = lane / 4, tig = lane % 4;
   const int row0 = q0 + 64 * group;
   const int r = row0 + 16 * warp + g;  // this thread's rows: r and r + 8
   const int my_tiles =
       row0 < tq ? tiles_for(kind, min(row0 + 64, tq) - 1, tk, BK) : 0;
+  const int my_first = first_tile<kWindow>(row0, window, BK);
   const float sl2 = scale * LOG2E;
   const float minus_inf = __int_as_float(0xff800000);
 
-  float m[2], l[2], acc[32];
+  float m[2], l[2], acc[D / 2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r + 8 * i;
@@ -584,7 +619,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     l[i] = live ? l_in[ml] : 0.f;
     const float* src = o_in + state_at(b, row, h, tq, heads, D) + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float2 o = live ? *reinterpret_cast<const float2*>(src + 8 * j)
                             : make_float2(0.f, 0.f);
       acc[4 * j + 2 * i] = o.x;
@@ -594,33 +629,40 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
 
   sm90::mbar_wait(qbar, 0);
   const uint32_t qa = sq + 64 * group * ROW;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
-    // wait even for a tile this warpgroup skips: its release below must
-    // count towards this round of the stage, not the previous one
-    sm90::mbar_wait(full(s), (t / STAGES) & 1);
-    if (t < my_tiles) {
+  for (int t = t0; t < n_tiles; ++t) {
+    const int n = t - t0, s = n % STAGES;
+    // wait even for a tile this warpgroup skips (before its band or past
+    // its diagonal): its release below must count towards this round of
+    // the stage, not the previous one
+    sm90::mbar_wait(full(s), (n / STAGES) & 1);
+    if ((!kWindow || t >= my_first) && t < my_tiles) {
       const int k0 = t * BK;
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // 16 head-dim values a step
-        sm90::wgmma_ss<0>(sc, desc(qa + 32 * kk),
-                          desc(sk + s * TILE + 32 * kk), kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {  // 16 head-dim values a step
+        const uint32_t off = 32 * (kk % 4);  // within panel kk / 4
+        sm90::wgmma_ss<0>(sc, desc(qa + kk / 4 * S::QPANEL + off),
+                          desc(sk + s * TILE + kk / 4 * PANEL + off), kk > 0);
+      }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::reg_fence(sc);
 
       // raw scores; masked ones -inf, so they never raise the max and
-      // exp2 turns them into 0 (also against m = NEG_INF)
-      if (k0 + BK > tk || (kind == 1 && k0 + BK - 1 > row0)) {
+      // exp2 turns them into 0 (also against m = NEG_INF). Only a tile
+      // that crosses the Tk edge, the diagonal or the band's lower edge
+      // (row - col >= W for its last row and first key) is masked.
+      if (k0 + BK > tk || (kind == 1 && k0 + BK - 1 > row0)
+          || (kWindow && row0 + 63 - k0 >= window)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int row = r + 8 * ((i % 4) / 2);
           const int col = k0 + 8 * (i / 4) + 2 * tig + i % 2;
-          if (!allowed(kind, row, col, tk)) sc[i] = minus_inf;
+          if (!visible<kWindow>(kind, row, col, tk, window))
+            sc[i] = minus_inf;
         }
       }
       float mx[2] = {minus_inf, minus_inf};
@@ -649,7 +691,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
         l[i] = l[i] * corr[i] + sum[i];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i % 4) / 2];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i % 4) / 2];
 
       // P as A fragments: keys 16kk..16kk+15 are S columns 8(2kk) ..,
       // i.e. accumulator elements 8kk .. 8kk+7, in the A order
@@ -668,9 +710,16 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step: 16 rows of V
-        const uint64_t dv = desc(sv + s * TILE + 16 * kk * ROW);
-        sm90::wgmma_rs_tb(acc, hi[kk], dv);
-        if (kSplitP) sm90::wgmma_rs_tb(acc, lo[kk], dv);
+        const uint32_t rows = sv + s * TILE + 16 * kk * ROW;
+        if constexpr (D == 64) {
+          const uint64_t dv = desc(rows);
+          sm90::wgmma_rs_tb(acc, hi[kk], dv);
+          if (kSplitP) sm90::wgmma_rs_tb(acc, lo[kk], dv);
+        } else {  // N = 128 over V's two panels
+          const uint64_t dv = sm90::sw128_desc(rows, PANEL >> 4, 1024 >> 4);
+          sm90::wgmma_rs_tb_n128(acc, hi[kk], dv);
+          if (kSplitP) sm90::wgmma_rs_tb_n128(acc, lo[kk], dv);
+        }
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -691,24 +740,52 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     float* dst = o_out + state_at(b, row, h, tq, heads, D) + 2 * tig;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(dst + 8 * j) =
           make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
   }
 }
 
-// 4-D map over a bf16 [batch][len][heads][D] input with element strides
-// st, boxes of `rows` rows of one head, 128-byte swizzled; rows past len
-// read as zeros
+template <int D, bool kSplitP>
+__global__ void __launch_bounds__(Shape<D>::NT, 1)
+flash_kernel(const __grid_constant__ CUtensorMap q_map,
+             const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map,
+             const float* __restrict__ m_in, const float* __restrict__ l_in,
+             const float* __restrict__ o_in, float* __restrict__ m_out,
+             float* __restrict__ l_out, float* __restrict__ o_out, int heads,
+             int tq, int tk, int kind, float scale) {
+  absorb<D, kSplitP, false>(q_map, k_map, v_map, m_in, l_in, o_in, m_out,
+                            l_out, o_out, heads, tq, tk, kind, 0, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Shape<D>::NT, 1)
+flash_window_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const float* __restrict__ m_in,
+                    const float* __restrict__ l_in,
+                    const float* __restrict__ o_in, float* __restrict__ m_out,
+                    float* __restrict__ l_out, float* __restrict__ o_out,
+                    int heads, int tq, int tk, int kind, int window,
+                    float scale) {
+  absorb<D, true, true>(q_map, k_map, v_map, m_in, l_in, o_in, m_out, l_out,
+                        o_out, heads, tq, tk, kind, window, scale);
+}
+
+// 4-D map over a bf16 [batch][len][heads][dim] input with element strides
+// st, boxes of `rows` rows of 64 head-dim columns of one head, 128-byte
+// swizzled; rows past len read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, const Strides& st,
-              int batch, int len, int heads, int rows) {
+              int batch, int len, int heads, int dim, int rows) {
   const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
+  const cuuint64_t dims[4] = {cuuint64_t(dim), cuuint64_t(heads),
                               cuuint64_t(len), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(st.h) * 2, cuuint64_t(st.t) * 2,
                                  cuuint64_t(st.b) * 2};
-  const cuuint32_t box[4] = {D, 1, cuuint32_t(rows), 1};
+  const cuuint32_t box[4] = {ROW / 2, 1, cuuint32_t(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
@@ -717,23 +794,34 @@ bool make_map(CUtensorMap* map, const void* ptr, const Strides& st,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kSplitP>
+// kWindow: flash_window_kernel (P split), else flash_kernel<D, kSplitP>
+template <int D, bool kSplitP, bool kWindow>
 int launch(const void* q, const void* k, const void* v, const Strides* st,
            const float* mi, const float* li, const float* oi, float* mo,
            float* lo, float* oo, int batch, int heads, int tq, int tk,
-           int kind, float scale, cudaStream_t s) {
+           int kind, int window, float scale, cudaStream_t s) {
+  using S = Shape<D>;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, st[0], batch, tq, heads, BQ)
-      || !make_map(&km, k, st[1], batch, tk, heads, BK)
-      || !make_map(&vm, v, st[2], batch, tk, heads, BK))
+  if (!make_map(&qm, q, st[0], batch, tq, heads, D, S::BQ)
+      || !make_map(&km, k, st[1], batch, tk, heads, D, BK)
+      || !make_map(&vm, v, st[2], batch, tk, heads, D, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_kernel<kSplitP>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(batch * heads, (tq + BQ - 1) / BQ);
-  kernel<<<grid, NT, SMEM, s>>>(qm, km, vm, mi, li, oi, mo, lo, oo, heads,
-                                tq, tk, kind, scale);
+  const dim3 grid(batch * heads, (tq + S::BQ - 1) / S::BQ);
+  if constexpr (kWindow) {
+    auto kernel = flash_window_kernel<D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, S::NT, S::SMEM, s>>>(qm, km, vm, mi, li, oi, mo, lo, oo,
+                                        heads, tq, tk, kind, window, scale);
+  } else {
+    auto kernel = flash_kernel<D, kSplitP>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, S::NT, S::SMEM, s>>>(qm, km, vm, mi, li, oi, mo, lo, oo,
+                                        heads, tq, tk, kind, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -749,14 +837,14 @@ Kernel pick(int dim, Kernel k16, Kernel k32, Kernel k64, Kernel k128) {
 extern "C" {
 
 // route: 0 = fp32 on FMA; 1 = bf16 on mma.sync; 2 = bf16 on wgmma with
-// TMA (head dim 64); 3 = route 2 with P rounded to bf16 (measurement
-// only). q [batch][tq][heads][dim], k, v [batch][tk][heads][dim], each
+// TMA (head dim 64 or 128, at least one key); 3 = route 2 with P rounded to
+// bf16 (measurement only: head dim 64, no window). q [batch][tq][heads][dim], k, v [batch][tk][heads][dim], each
 // with element strides (b, t, h) at strides[0..2], [3..5], [6..8] and a
 // unit-stride head dim; routes 1-3 need 16-byte aligned bases and strides.
 // m, l, m_out, l_out: [batch][heads][tq]; o, o_out: [batch][tq][heads][dim],
 // contiguous fp32. kind: 0 all, 1 causal (call-local row >= col), 2 none.
-// window: 0 none, else keys col with row - col < window only (routes 0 and
-// 1, through flash_window_kernel). Returns the CUDA error of the launch (0 on
+// window: 0 none, else keys col with row - col < window only (routes 0 to
+// 2, through flash_window_kernel). Returns the CUDA error of the launch (0 on
 // success).
 int vtpu_flash_absorb(int route, const void* q, const void* k, const void* v,
                       const long long* strides, const void* m, const void* l,
@@ -818,14 +906,31 @@ int vtpu_flash_absorb(int route, const void* q, const void* k, const void* v,
                                  mo, lo, oo, heads, tq, tk, dim, kind, scale);
     }
   } else if (route == 2 || route == 3) {
-    if (dim != wg::D || tk == 0 || window > 0
-        || (tq + wg::BQ - 1) / wg::BQ > 65535)
+    // route 3 (measurement only) keeps to the LM's case: D = 64, no window
+    const int bq = dim == 64 ? wg::Shape<64>::BQ : wg::Shape<128>::BQ;
+    if ((dim != 64 && dim != 128) || tk == 0
+        || (route == 3 && (dim != 64 || window > 0))
+        || (tq + bq - 1) / bq > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
-    return route == 2
-        ? wg::launch<true>(q, k, v, st, mi, li, oi, mo, lo, oo, batch, heads,
-                           tq, tk, kind, scale, s)
-        : wg::launch<false>(q, k, v, st, mi, li, oi, mo, lo, oo, batch,
-                            heads, tq, tk, kind, scale, s);
+    if (route == 3)
+      return wg::launch<64, false, false>(q, k, v, st, mi, li, oi, mo, lo, oo,
+                                          batch, heads, tq, tk, kind, 0,
+                                          scale, s);
+    if (dim == 64)
+      return window > 0
+          ? wg::launch<64, true, true>(q, k, v, st, mi, li, oi, mo, lo, oo,
+                                       batch, heads, tq, tk, kind, window,
+                                       scale, s)
+          : wg::launch<64, true, false>(q, k, v, st, mi, li, oi, mo, lo, oo,
+                                        batch, heads, tq, tk, kind, 0, scale,
+                                        s);
+    return window > 0
+        ? wg::launch<128, true, true>(q, k, v, st, mi, li, oi, mo, lo, oo,
+                                      batch, heads, tq, tk, kind, window,
+                                      scale, s)
+        : wg::launch<128, true, false>(q, k, v, st, mi, li, oi, mo, lo, oo,
+                                       batch, heads, tq, tk, kind, 0, scale,
+                                       s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,7 +21,7 @@ The layer equations, over the residual stream x [B, T, D] (fp32):
   j <= i. The attention output is gated per element, ``o * sigmoid(g)``
   (:func:`output_gate`), before the output projection. Each layer's
   softmax is one whole-sequence absorb through ``flash.flash_attention``:
-  K3 on a card (at Dh 128 its ``mma_sync`` route; a sliding layer's launch
+  K3 on a card (at Dh 128 its ``wgmma`` route; a sliding layer's launch
   skips the key tiles before its band and is counted apart, under
   ``flash_window``), the plain absorb on the CPU;
 - FFN of the first ``dense_layers`` layers: SwiGLU W2 (silu(W1 u) * W3 u)

@@ -22,9 +22,8 @@ narrows it to the keys with row - col < W (kind 1 with W is the sliding
 window: key j is visible to query i iff i - W < j <= i); the kernel then
 never loads the key tiles wholly before the band, and launches as
 ``flash_window_kernel``, counted in ``_build.launches["flash_window"]``
-where every other launch counts under ``flash_absorb``. The ``wgmma``
-route takes no window: :func:`absorb_route` sends a windowed bf16 call to
-``mma_sync`` at every head dim, and forcing ``wgmma`` with one raises.
+where every other launch counts under ``flash_absorb``. Every route
+takes a window; the window does not change the route.
 
 Gradients: where autograd records, :func:`flash_absorb` runs as a
 ``torch.autograd.Function``, the counterpart of the JAX custom VJP
@@ -55,12 +54,13 @@ NEG_INF = -1e30
 
 #: largest head dim the kernel takes
 MAX_HEAD_DIM = 128
-#: the bf16 head dim of the wgmma + TMA route; other bf16 head dims take
+#: the bf16 head dims of the wgmma + TMA route; other bf16 head dims take
 #: the mma.sync route
-WGMMA_HEAD_DIM = 64
+WGMMA_HEAD_DIMS = (64, 128)
 #: kernel routes by name: fp32 on FMA, bf16 on mma.sync, bf16 on wgmma
-#: with a TMA ring, and the last with P rounded to bf16 (measurement only:
-#: it misses the LM-case check, see the kernel's header)
+#: with a TMA ring, and the last with P rounded to bf16 (measurement only,
+#: at head dim 64 without a window: it misses the LM-case check, see the
+#: kernel's header)
 ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2, "wgmma_round_p": 3}
 # route, q, k, v, strides, m, l, o, m_out, l_out, o_out, batch, heads, tq,
 # tk, dim, kind, window, scale
@@ -152,12 +152,12 @@ def _check(q, k, v, kind, m, l, o, window: int = 0) -> int:
 
 def absorb_route(dtype, dim: int, tk: int, window: int = 0) -> str:
     """The kernel route for these shapes: fp32 on FMA; bf16 on wgmma with
-    a TMA ring at head dim 64 (with at least one key and no window), else
-    on mma.sync."""
+    a TMA ring at head dims 64 and 128 (with at least one key), else on
+    mma.sync. Every route takes the ``window``, which leaves the choice as
+    it is."""
     if dtype == torch.float32:
         return "fma"
-    return ("wgmma" if dim == WGMMA_HEAD_DIM and tk > 0 and not window
-            else "mma_sync")
+    return ("wgmma" if dim in WGMMA_HEAD_DIMS and tk > 0 else "mma_sync")
 
 
 def check_strides(name: str, t) -> None:
@@ -267,9 +267,9 @@ def _absorb_kernel(route: str | None, q, k, v, kind, m, l, o,
         raise ValueError(f"flash_absorb: bf16 needs a head dim that is a "
                          f"multiple of 8, got {dim}")
     window = int(window)
-    if window and route and route.startswith("wgmma"):
-        raise ValueError(f"flash_absorb: route {route} takes no window, got "
-                         f"{window}")
+    if route == "wgmma_round_p" and (dim != 64 or window):
+        raise ValueError(f"flash_absorb: route {route} takes head dim 64 "
+                         f"and no window, got {dim} and {window}")
     route = route or absorb_route(q.dtype, dim, tk, window)
     if (route == "fma") != (q.dtype == torch.float32) or (
             route.startswith("wgmma")

@@ -174,8 +174,9 @@ def test_window_keeps_the_carried_state_and_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="window"):
         flash.flash_absorb(q, k, v, 1, m, l, o, -1)
     assert flash.absorb_route(torch.bfloat16, 64, 40) == "wgmma"
-    assert flash.absorb_route(torch.bfloat16, 64, 40, 9) == "mma_sync"
-    assert flash.absorb_route(torch.bfloat16, 128, 40) == "mma_sync"
+    assert flash.absorb_route(torch.bfloat16, 64, 40, 9) == "wgmma"
+    assert flash.absorb_route(torch.bfloat16, 128, 40) == "wgmma"
+    assert flash.absorb_route(torch.bfloat16, 128, 40, 9) == "wgmma"
 
 
 def test_sliding_layers_take_the_window_and_rope_full_layers_neither(

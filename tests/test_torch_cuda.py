@@ -547,21 +547,22 @@ def test_flash_absorb_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("dtype,dim", [(torch.bfloat16, 64),
                                        (torch.bfloat16, 32),
-                                       (torch.float32, 64)])
+                                       (torch.float32, 64),
+                                       (torch.bfloat16, 128)])
 def test_flash_absorb_reads_fused_qkv_views_in_place(cuda, dtype, dim):
     """q, k, v as the views of one [B, T, 3, H, D] projection (what
     layer_qkv returns): bit-equal to the same absorb on contiguous
-    copies, on every route."""
+    copies, on every route, with and without a window."""
     qkv = torch.randn(2, 200, 3, 4, dim,
                       generator=torch.Generator().manual_seed(2)).to(cuda,
                                                                      dtype)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
-    for kind in (0, 1):
+    for kind, window in ((0, 0), (1, 0), (1, 77)):
         m, l, o = flash.flash_state(q)
-        got = flash.flash_absorb(q, k, v, kind, m, l, o)
+        got = flash.flash_absorb(q, k, v, kind, m, l, o, window)
         want = flash.flash_absorb(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), kind, m, l, o)
+                                  v.contiguous(), kind, m, l, o, window)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -914,11 +915,13 @@ def _banded(kind, tq, tk, window, device):
                                        (torch.bfloat16, 2e-2)])
 def test_flash_window_matches_plain_at_head_dim_128(cuda, dtype, tol, tq,
                                                     window):
-    """K3's window on its FMA (fp32) and mma.sync (bf16) routes at head dim
+    """K3's window on its FMA (fp32) and wgmma (bf16) routes at head dim
     128, against the plain absorb under the band's mask, on a carried state
     that is not the identity: one launch, counted under ``flash_window``.
     fp32 at the LM tests' 1e-4: over up to 1000 keys the kernel's rescaled
     running sums round otherwise than one product does."""
+    assert flash.absorb_route(dtype, 128, tq, window) == (
+        "fma" if dtype == torch.float32 else "wgmma")
     q, k, v, m, l, o = _flash_args(1, tq, tq, 2, 128, dtype, cuda, seed=6)
     before = dict(_build.launches)
     got = flash.flash_absorb(q, k, v, 1, m, l, o, window)
@@ -939,29 +942,79 @@ def test_flash_window_past_the_sequence_is_the_causal_absorb(cuda, dtype,
                                                              dim):
     """A window as wide as the sequence masks nothing more: the windowed
     kernel gives the causal kernel's bits (the same body, the band's test
-    always true), on the route the window takes."""
+    always true), on each route that takes the dtype."""
     q, k, v, m, l, o = _flash_args(2, 333, 333, 3, dim, dtype, cuda, seed=7)
-    route = "fma" if dtype == torch.float32 else "mma_sync"
-    got = flash._absorb_kernel(route, q, k, v, 1, m, l, o, 333)
-    want = flash._absorb_kernel(route, q, k, v, 1, m, l, o)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    routes = (("fma",) if dtype == torch.float32
+              else ("mma_sync", "wgmma"))
+    for route in routes:
+        got = flash._absorb_kernel(route, q, k, v, 1, m, l, o, 333)
+        want = flash._absorb_kernel(route, q, k, v, 1, m, l, o)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), route
 
 
 def test_flash_window_is_refused_by_the_wgmma_route(cuda):
-    """The wgmma route takes no window: forced, it raises; by default a
-    windowed call at head dim 64 takes mma.sync, and the causal call at
-    LFM2's head dim still takes wgmma."""
+    """Of the wgmma routes only the measurement variant that rounds P
+    (head dim 64, no window) refuses a window: forced with one, it raises;
+    by default a windowed call at head dim 64 takes wgmma, as the causal
+    call at LFM2's head dim does, and matches the plain absorb."""
     q, k, v, m, l, o = _flash_args(1, 100, 100, 2, 64, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="takes no window"):
-        flash._absorb_kernel("wgmma", q, k, v, 1, m, l, o, 16)
-    assert flash.absorb_route(torch.bfloat16, 64, 100, 16) == "mma_sync"
+    with pytest.raises(ValueError, match="no window"):
+        flash._absorb_kernel("wgmma_round_p", q, k, v, 1, m, l, o, 16)
+    assert flash.absorb_route(torch.bfloat16, 64, 100, 16) == "wgmma"
     assert flash.absorb_route(torch.bfloat16, 64, 100) == "wgmma"
     got = flash.flash_absorb(q, k, v, 1, m, l, o, 16)
     want = flash.absorb_block_reference(
         q, k, v, _banded(1, 100, 100, 16, cuda), m, l, o, 64 ** -0.5)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+
+
+# T ends mid-tile (3000) with tq == tk, or tq != tk; windows none, not a
+# multiple of 64 (100), and longer than T (5000)
+@pytest.mark.parametrize("tq,tk", [(3000, 3000), (200, 1000)])
+@pytest.mark.parametrize("window", [0, 100, 5000])
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_wgmma_at_head_dim_128_matches_plain(cuda, kind, window, tq, tk):
+    """K3's ``wgmma`` route at head dim 128 (two 64-column panels a row, two
+    consumer warpgroups) against the plain absorb under kind's mask and the
+    window, on a carried state that is not the identity; kind 2 passes the
+    state through bit for bit. One launch, under ``flash_window`` when
+    there is a window."""
+    assert flash.absorb_route(torch.bfloat16, 128, tk, window) == "wgmma"
+    q, k, v, m, l, o = _flash_args(1, tq, tk, 2, 128, torch.bfloat16, cuda,
+                                   seed=8)
+    counter = "flash_window" if window else "flash_absorb"
+    before = _build.launches[counter]
+    got = flash._absorb_kernel("wgmma", q, k, v, kind, m, l, o, window)
+    torch.cuda.synchronize()
+    assert _build.launches[counter] == before + 1
+    if kind == 2:
+        for g, w in zip(got, (m, l, o)):
+            assert torch.equal(g, w)
+        return
+    allowed = (_banded(kind, tq, tk, window, cuda) if window
+               else _allowed(kind, tq, tk, cuda))
+    want = flash.absorb_block_reference(q, k, v, allowed, m, l, o,
+                                        128 ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+
+
+def test_flash_window_routes_agree_at_head_dim_128(cuda):
+    """At head dim 128 under a window, K3 forced onto ``mma_sync`` and onto
+    ``wgmma`` give the same state within bf16's 2e-2 (the same split P,
+    summed in another order), and the same finalized output."""
+    q, k, v, m, l, o = _flash_args(1, 2000, 2000, 4, 128, torch.bfloat16,
+                                   cuda, seed=9)
+    sync = flash._absorb_kernel("mma_sync", q, k, v, 1, m, l, o, 300)
+    wg = flash._absorb_kernel("wgmma", q, k, v, 1, m, l, o, 300)
+    for g, w in zip(wg, sync):
+        torch.testing.assert_close(g, w, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(
+        flash.flash_finalize(*wg, torch.bfloat16).float(),
+        flash.flash_finalize(*sync, torch.bfloat16).float(), rtol=2e-2,
+        atol=2e-2)
 
 
 def _trinity_config():
@@ -992,10 +1045,10 @@ def test_trinity_forward_counts_its_kernels(cuda):
     torch.cuda.empty_cache()
 
 
-def test_trinity_attention_takes_k3_mma_sync(cuda):
+def test_trinity_attention_takes_k3_wgmma(cuda):
     """Trinity's attention (32 query heads over 4 KV heads of 128) runs K3
-    on its ``mma_sync`` route: a sliding layer launches one
-    ``tc::flash_window_kernel``, a full layer one ``tc::flash_kernel``."""
+    on its ``wgmma`` route: a sliding layer launches one
+    ``wg::flash_window_kernel``, a full layer one ``wg::flash_kernel``."""
     from torch.profiler import ProfilerActivity, profile
     attn = afmoe.Attention(afmoe.TRINITY_MINI, torch.bfloat16).to(cuda)
     with torch.no_grad():
@@ -1014,9 +1067,9 @@ def test_trinity_attention_takes_k3_mma_sync(cuda):
         names[window] = [(e.key, e.count) for e in prof.key_averages()
                          if "flash_" in e.key and "_kernel" in e.key]
         assert out.shape == u.shape
-    assert len(names[2048]) == 1 and "tc::flash_window_kernel" in \
+    assert len(names[2048]) == 1 and "wg::flash_window_kernel" in \
         names[2048][0][0] and names[2048][0][1] == 1, names
-    assert len(names[0]) == 1 and "tc::flash_kernel" in names[0][0][0] \
+    assert len(names[0]) == 1 and "wg::flash_kernel" in names[0][0][0] \
         and names[0][0][1] == 1, names
 
 

@@ -165,8 +165,12 @@ def test_routes_and_kernel_strides():
     assert tflash.absorb_route(torch.float32, 64, 128) == "fma"
     assert tflash.absorb_route(bf16, 64, 2048) == "wgmma"
     assert tflash.absorb_route(bf16, 64, 0) == "mma_sync"
-    for dim in (16, 32, 128):
+    assert tflash.absorb_route(bf16, 128, 0) == "mma_sync"
+    for dim in (16, 32):
         assert tflash.absorb_route(bf16, dim, 128) == "mma_sync"
+    for dim in (64, 128):  # with or without a window
+        assert tflash.absorb_route(bf16, dim, 128) == "wgmma"
+        assert tflash.absorb_route(bf16, dim, 128, 100) == "wgmma"
     q = torch.zeros(2, 8, 3, 4, 64).unbind(2)[0]
     assert tflash._kernel_strides(q) == [8 * 3 * 4 * 64, 3 * 4 * 64, 64]
     # dims of size 1 get a packed layout's stride, a multiple of 16 bytes
